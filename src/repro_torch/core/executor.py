@@ -210,6 +210,101 @@ def compile_plan(plan: PhysicalPlan) -> CompiledPlan:
     return CompiledPlan(plan, lower(plan), len(plan.join_caps))
 
 
+# -- batched (stacked same-shape) execution -----------------------------------
+
+
+def lower_batched(
+    plan: PhysicalPlan,
+    scan_axes: "tuple[int | None, ...] | None" = None,
+) -> Callable[..., ChainResult]:
+    """Stacked variant of `lower`: one dispatch executes a whole lane batch
+    of same-shape queries.
+
+    Every per-query runtime input — the scan relations, `consts_i`,
+    `consts_f` — gains a leading lane axis; the store-wide `num_vals`
+    table stays shared. A `(width,)` bool `lane_active` mask marks which
+    lanes carry real queries: an inactive (padding) lane has its scan
+    validity zeroed before anything else runs, so no operator downstream —
+    join expansion, OPTIONAL unmatched-left padding, UNION concatenation —
+    can emit a valid row for it, and its overflow flags are suppressed so
+    padding can never trigger a bucket regrow.
+
+    `scan_axes` is the per-scan lane axis: 0 for a stacked (width, cap,
+    n_cols) buffer, None for a BROADCAST scan every lane shares — the
+    same-query-different-FILTER batch ships each such scan's device buffer
+    once instead of W stacked copies. Default: all stacked.
+
+    Lanes need NOT stage at their natural scan capacities: cross-shape
+    padded stacking (engine._coalesce_groups) runs near-miss PlanShapes —
+    same plan DAG, smaller pow-2 scan caps — through one program by
+    padding each lane's scans up to the group's max caps. Padding rows
+    arrive valid=False, and every operator here is masked on validity, so
+    a padded lane emits exactly the rows its natural shape would have.
+
+    The batching is torch.func.vmap over the single-query program: plain
+    torch ops batch by torch's rules, and each kernel op's vmap rule maps
+    the batched call onto ONE launch of the kernel's stacked form, so a
+    stacked dispatch launches each kernel once per join node, whatever the
+    width.
+    """
+    base = lower(plan)
+    axes = tuple(scan_axes) if scan_axes is not None else (0,) * plan.n_scans
+
+    def run_lane(
+        scans: tuple[Relation, ...],
+        consts_i: torch.Tensor,
+        consts_f: torch.Tensor,
+        num_vals: torch.Tensor,
+        active: torch.Tensor,
+    ) -> ChainResult:
+        masked = tuple(
+            Relation(s.schema, s.cols, s.valid & active) for s in scans
+        )
+        rel, totals, flags = base(masked, consts_i, consts_f, num_vals)
+        return ChainResult(rel, totals, flags & active)
+
+    return torch.func.vmap(run_lane, in_dims=(axes, 0, 0, None, 0))
+
+
+@dataclasses.dataclass
+class CompiledBatch:
+    """The width-W stacked program for one (shape, join-caps) point.
+
+    Same specialisation as CompiledPlan plus the batch width and the
+    per-scan stacked/broadcast layout: any group of <= W same-shape
+    queries whose scans stack the same way dispatches through it
+    (trailing lanes padded, masked inactive)."""
+
+    plan: PhysicalPlan
+    width: int
+    program: Callable[..., ChainResult]
+    scan_axes: "tuple[int | None, ...]" = ()
+
+    def __call__(
+        self,
+        scans: tuple[Relation, ...],
+        consts_i: torch.Tensor,
+        consts_f: torch.Tensor,
+        num_vals: torch.Tensor,
+        lane_active: torch.Tensor,
+    ) -> ChainResult:
+        return self.program(scans, consts_i, consts_f, num_vals, lane_active)
+
+
+def compile_plan_batched(
+    plan: PhysicalPlan,
+    width: int,
+    scan_axes: "tuple[int | None, ...] | None" = None,
+) -> CompiledBatch:
+    """Build the stacked program at batch width `width` (scans at a None
+    axis in `scan_axes` must arrive UNstacked, (cap, n_cols))."""
+    if scan_axes is None:
+        scan_axes = (0,) * plan.n_scans
+    return CompiledBatch(
+        plan, width, lower_batched(plan, scan_axes), tuple(scan_axes)
+    )
+
+
 def execute_plan(
     plan: PhysicalPlan,
     scans: tuple[Relation, ...],

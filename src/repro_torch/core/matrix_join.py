@@ -59,7 +59,7 @@ def _expand_gather(counts, first, b, cl, pos_r, capacity: int):
     dev = counts.device
     rows = torch.arange(n_l, dtype=_I32, device=dev)
     # right side in stable key order: j_at[pos_r[j]] = j (no argsort)
-    j_at = torch.empty(n_r, dtype=_I32, device=dev).scatter_(
+    j_at = torch.empty(n_r, dtype=_I32, device=dev).scatter(
         0, pos_r.long(), torch.arange(n_r, dtype=_I32, device=dev)
     )
     if n_r:
@@ -71,8 +71,9 @@ def _expand_gather(counts, first, b, cl, pos_r, capacity: int):
     start = before_key + b
     total = counts.sum(dtype=_I32)
     idx = torch.where(counts > 0, start, capacity).clamp(0, capacity)
-    marks = torch.zeros(capacity + 1, dtype=_I32, device=dev)
-    marks.scatter_(0, idx.long(), first * n_l + rows)
+    marks = torch.zeros(capacity + 1, dtype=_I32, device=dev).scatter(
+        0, idx.long(), first * n_l + rows
+    )
     li = torch.cummax(marks[:capacity], dim=0).values % max(n_l, 1)
     k = torch.arange(capacity, dtype=_I32, device=dev)
     r_k = k - start[li]  # occurrence rank of slot k within its left row

@@ -32,7 +32,7 @@ from repro_torch.core.relation import (
     Relation,
     shared_vars,
 )
-from repro_torch.core.segments import dense_rank_two_sided, lexsort
+from repro_torch.core.segments import dense_rank_two_sided, first_row, lexsort
 from repro_torch.kernels.pair_expand import ops as pe_ops
 
 _I32 = torch.int32
@@ -206,19 +206,17 @@ def distinct(rel: Relation) -> Relation:
     cols_s = rel.cols[perm]
     valid_s = rel.valid[perm]
     same_as_prev = (cols_s == torch.roll(cols_s, 1, dims=0)).all(dim=1)
-    same_as_prev[:1].fill_(False)  # fill_, not item assignment: no host copy
-    prev_valid = torch.roll(valid_s, 1)
-    prev_valid[:1].fill_(False)
+    prev_valid = torch.roll(valid_s, 1) & ~first_row(valid_s)
     keep = valid_s & ~(same_as_prev & prev_valid)
     # scatter back to buffer order (perm is a permutation)
-    return Relation(rel.schema, rel.cols, torch.empty_like(keep).scatter_(0, perm, keep))
+    return Relation(rel.schema, rel.cols, torch.empty_like(keep).scatter(0, perm, keep))
 
 
 def _matched_left_mask(plan: JoinPlanArrays, left: Relation) -> torch.Tensor:
     """valid mask of left rows having >=1 right match, in buffer order
     (shared by semijoin_mask and left_join's unmatched padding)."""
     has = plan.counts > 0
-    in_buffer_order = torch.empty_like(has).scatter_(0, plan.order_l.long(), has)
+    in_buffer_order = torch.empty_like(has).scatter(0, plan.order_l.long(), has)
     return left.valid & in_buffer_order
 
 

@@ -13,6 +13,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 # Sentinel keys: invalid rows are sent to distinct, never-equal key values so
 # they sort to the end and can never pair up across sides.
@@ -30,8 +31,10 @@ class Relation:
     """A dictionary-encoded relation with static capacity.
 
     Attributes:
-      schema: variable name per column.
-      cols:   (capacity, n_cols) int32 term ids.
+      schema: variable name per column (the pytree's static context).
+      cols:   (capacity, n_cols) int32 term ids. A leading lane axis —
+              (width, capacity, n_cols) — is allowed so stacked same-shape
+              queries travel as one pytree through the vmapped executor.
       valid:  (capacity,) bool — rows beyond the real result are padding.
     """
 
@@ -40,7 +43,11 @@ class Relation:
     valid: torch.Tensor
 
     def __post_init__(self):
-        if self.cols.dim() != 2 or len(self.schema) != self.cols.shape[-1]:
+        # torch.func.vmap also rebuilds Relations whose leaves are its
+        # integer in/out dims, so only tensors are checked
+        if isinstance(self.cols, torch.Tensor) and (
+            self.cols.dim() < 2 or len(self.schema) != self.cols.shape[-1]
+        ):
             raise ValueError(
                 f"schema {self.schema} does not fit cols {tuple(self.cols.shape)}"
             )
@@ -105,6 +112,17 @@ class Relation:
             torch.from_numpy(cols).to(device),
             torch.from_numpy(valid).to(device),
         )
+
+
+# A pytree for torch.func: cols and valid are the leaves, the schema is the
+# static context, so vmap takes a stacked scan at in_dims 0 and a scan every
+# lane shares (one buffer) at in_dims None.
+pytree.register_pytree_node(
+    Relation,
+    lambda r: ((r.cols, r.valid), r.schema),
+    lambda leaves, schema: Relation(schema, *leaves),
+    serialized_type_name="repro_torch.core.relation.Relation",
+)
 
 
 def pad_to(rel: Relation, capacity: int) -> Relation:

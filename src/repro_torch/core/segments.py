@@ -36,10 +36,19 @@ def dense_rank_two_sided(left_keys: torch.Tensor, right_keys: torch.Tensor):
     order = lexsort([all_keys[:, c] for c in reversed(range(all_keys.shape[1]))])
     sorted_keys = all_keys[order]
     new_group = (sorted_keys != torch.roll(sorted_keys, 1, dims=0)).any(dim=1)
-    new_group[:1].fill_(True)  # fill_, not item assignment: no host copy
+    new_group = new_group | first_row(new_group)
     rank_sorted = torch.cumsum(new_group, dim=0, dtype=torch.int32) - 1
-    ranks = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
+    ranks = torch.empty_like(rank_sorted).scatter(0, order, rank_sorted)
     return ranks[:n_l], ranks[n_l:]
+
+
+def first_row(x: torch.Tensor) -> torch.Tensor:
+    """A bool mask of x's rows that is True at row 0 only.
+
+    The joins write no element in place (no item assignment, which copies
+    to the host, and no in-place op, which torch.func.vmap cannot batch
+    into a fresh unbatched buffer): they combine with this mask instead."""
+    return torch.arange(x.shape[0], device=x.device) == 0
 
 
 def segment_offsets_from_sorted(sorted_ids: torch.Tensor, num_segments: int):
@@ -65,7 +74,7 @@ def counts_to_segment_ids(counts: torch.Tensor, total: int):
     # scatter-add 1 at each segment start; starts past the end land in a
     # spare slot that is sliced off (the reference drops them)
     out = torch.zeros(total + 1, dtype=torch.int32, device=counts.device)
-    out.scatter_add_(
+    out = out.scatter_add(
         0, starts.clamp(max=total).long(), (counts > 0).to(torch.int32)
     )
     ids = torch.cumsum(out[:total], dim=0, dtype=torch.int32) - 1

@@ -26,6 +26,8 @@ import subprocess
 import tempfile
 import threading
 
+import torch
+
 KERNELS_DIR = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -35,6 +37,8 @@ NVCC_FLAGS = (
 
 # Launches per kernel, counted by each binding where it launches (and
 # nowhere else): a run reads them to show which kernels it went through.
+# One count is one call of the kernel's C launcher, which may issue more
+# than one device launch (bitonic_sort issues one per global-memory pass).
 LAUNCHES: collections.Counter = collections.Counter()
 
 _libs: dict[tuple[str, str], ctypes.CDLL] = {}
@@ -120,6 +124,36 @@ def load(package: str, stem: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(package, stem)))
             _libs[(package, stem)] = lib
         return lib
+
+
+def check_int32(x, what: str) -> None:
+    """Refuse what the int32 kernels do not take: a CPU tensor, another
+    type, a non-contiguous layout, or other than 1 or 2 dimensions (a 2-D
+    tensor is a stack of lanes)."""
+    if not x.is_cuda or x.dtype != torch.int32 or x.dim() not in (1, 2):
+        raise ValueError(
+            f"{what}: expected a 1-D or 2-D int32 CUDA tensor, got "
+            f"{x.dtype} {tuple(x.shape)} on {x.device}"
+        )
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def lanes_of(x) -> tuple[int, int]:
+    """(lanes, length) of a (length,) or stacked (lanes, length) input; the
+    lane rides in the grid's y dimension, at most 65535."""
+    lanes = x.shape[0] if x.dim() == 2 else 1
+    if lanes > 65535:
+        raise ValueError(f"{lanes} lanes exceed the grid's y dimension")
+    return lanes, x.shape[-1]
+
+
+def lanes_first(x, bdim, batch_size: int):
+    """A vmapped op's input with its lane axis first: unbatched inputs
+    (bdim None) are expanded to every lane."""
+    if bdim is None:
+        return x.unsqueeze(0).expand(batch_size, *x.shape)
+    return x.movedim(bdim, 0)
 
 
 def check_launch(name: str, err: int) -> None:

@@ -9,6 +9,11 @@
 // row and its offset, exactly as the TPU kernel and the jnp reference
 // compute them.
 //
+// Stacked form: `lanes` independent rows of (n_left,) inputs and
+// (capacity,) outputs, the lane in the grid's y dimension, so a stacked
+// same-shape batch is one launch (the reference vmaps the Pallas call).
+// A single call is the one-lane case.
+//
 // Bound on the H100: memory. Each slot writes 9 bytes (two int32 and a
 // bool) and reads O(log n_left) words of `prefix`; the prefix array is at
 // most a few MB at the engine's buckets, so after the first touches it sits
@@ -32,6 +37,10 @@ __global__ void pair_expand_kernel(const int* __restrict__ prefix,
                                    bool* __restrict__ out_valid) {
   const int t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= capacity) return;
+  const size_t in_base = static_cast<size_t>(blockIdx.y) * n_left;
+  const size_t out = static_cast<size_t>(blockIdx.y) * capacity + t;
+  prefix += in_base;
+  counts += in_base;
   int lo = 0;
   int hi = n_left;
   while (lo < hi) {
@@ -44,21 +53,22 @@ __global__ void pair_expand_kernel(const int* __restrict__ prefix,
   }
   const int i = lo < n_left - 1 ? lo : n_left - 1;
   const int start = __ldg(prefix + i) - __ldg(counts + i);
-  out_i[t] = i;
-  out_off[t] = t - start;
-  out_valid[t] = t < __ldg(prefix + n_left - 1);
+  out_i[out] = i;
+  out_off[out] = t - start;
+  out_valid[out] = t < __ldg(prefix + n_left - 1);
 }
 
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() after the launch.
-// Requires n_left >= 1 and capacity >= 1 (the binding checks both).
+// Requires 1 <= lanes <= 65535, n_left >= 1 and capacity >= 1 (the binding
+// checks all three).
 extern "C" int pair_expand_launch(const int* prefix, const int* counts,
-                                  int n_left, int capacity, int* out_i,
-                                  int* out_off, bool* out_valid,
+                                  int lanes, int n_left, int capacity,
+                                  int* out_i, int* out_off, bool* out_valid,
                                   cudaStream_t stream) {
-  const int blocks = (capacity + kThreads - 1) / kThreads;
-  pair_expand_kernel<<<blocks, kThreads, 0, stream>>>(
+  const dim3 grid((capacity + kThreads - 1) / kThreads, lanes);
+  pair_expand_kernel<<<grid, kThreads, 0, stream>>>(
       prefix, counts, n_left, capacity, out_i, out_off, out_valid);
   return static_cast<int>(cudaGetLastError());
 }

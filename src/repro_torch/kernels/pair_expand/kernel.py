@@ -17,40 +17,34 @@ _I = ctypes.c_int
 def _launcher():
     lib = kernels.load(NAME, NAME)
     fn = lib.pair_expand_launch
-    fn.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P]
+    fn.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P, _P]
     fn.restype = _I
     return fn
 
 
-def _check(x: torch.Tensor, what: str) -> None:
-    if not x.is_cuda or x.dtype != torch.int32 or x.dim() != 1:
-        raise ValueError(
-            f"{what}: expected a 1-D int32 CUDA tensor, got "
-            f"{x.dtype} {tuple(x.shape)} on {x.device}"
-        )
-    if not x.is_contiguous():
-        raise ValueError(f"{what}: expected a contiguous tensor")
-
-
 def pair_expand_cuda(prefix: torch.Tensor, counts: torch.Tensor, capacity: int):
-    """(row, offset-in-group, valid) per output slot, on the card."""
-    _check(prefix, "prefix")
-    _check(counts, "counts")
-    n_left = prefix.shape[0]
-    if counts.shape[0] != n_left or counts.device != prefix.device:
-        raise ValueError("prefix and counts must match in length and device")
+    """(row, offset-in-group, valid) per output slot, on the card.
+
+    `prefix` and `counts` are (n_left,) or stacked (lanes, n_left); the
+    outputs are (capacity,) or (lanes, capacity) to match, in one launch."""
+    kernels.check_int32(prefix, "prefix")
+    kernels.check_int32(counts, "counts")
+    if counts.shape != prefix.shape or counts.device != prefix.device:
+        raise ValueError("prefix and counts must match in shape and device")
+    lanes, n_left = kernels.lanes_of(prefix)
     if n_left < 1 or capacity < 0 or capacity >= 2**31:
         raise ValueError(f"bad sizes: n_left={n_left} capacity={capacity}")
     dev = prefix.device
-    out_i = torch.empty(capacity, dtype=torch.int32, device=dev)
-    out_off = torch.empty(capacity, dtype=torch.int32, device=dev)
-    out_valid = torch.empty(capacity, dtype=torch.bool, device=dev)
-    if capacity == 0:
+    shape = (*prefix.shape[:-1], capacity)
+    out_i = torch.empty(shape, dtype=torch.int32, device=dev)
+    out_off = torch.empty(shape, dtype=torch.int32, device=dev)
+    out_valid = torch.empty(shape, dtype=torch.bool, device=dev)
+    if capacity == 0 or lanes == 0:
         return out_i, out_off, out_valid
     fn = _launcher()
     with torch.cuda.device(dev):
         err = fn(
-            prefix.data_ptr(), counts.data_ptr(), n_left, capacity,
+            prefix.data_ptr(), counts.data_ptr(), lanes, n_left, capacity,
             out_i.data_ptr(), out_off.data_ptr(), out_valid.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )

@@ -21,6 +21,10 @@
 //         block matched anything (b = 0 there);
 //   cols: one thread per right row streams the left keys (cl).
 //
+// Stacked form: `lanes` independent (lk, rk) pairs, the lane in the grid's
+// y dimension, so a stacked same-shape batch is one call (the reference
+// vmaps the Pallas call). A single call is the one-lane case.
+//
 // Bound on the H100: operations. The compares are n_l * n_r (rows) +
 // n_l * n_r (cols) + up to n_l^2 / 2 (occ), int32 compare-and-add on the
 // CUDA cores; the bytes are (n_l + n_r) * 4 in and (3 n_l + n_r) * 4 out.
@@ -41,6 +45,12 @@ __global__ void layout_rows_kernel(const int* __restrict__ lk,
                                    int* __restrict__ first,
                                    int* __restrict__ b) {
   __shared__ int tile[kTile];
+  const size_t lane_l = static_cast<size_t>(blockIdx.y) * n_l;
+  lk += lane_l;
+  rk += static_cast<size_t>(blockIdx.y) * n_r;
+  counts += lane_l;
+  first += lane_l;
+  b += lane_l;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const bool live = i < n_l;
   const int key = live ? lk[i] : 0;
@@ -82,6 +92,10 @@ __global__ void layout_cols_kernel(const int* __restrict__ lk,
                                    const int* __restrict__ rk, int n_l,
                                    int n_r, int* __restrict__ cl) {
   __shared__ int tile[kTile];
+  lk += static_cast<size_t>(blockIdx.y) * n_l;
+  const size_t lane_r = static_cast<size_t>(blockIdx.y) * n_r;
+  rk += lane_r;
+  cl += lane_r;
   const int j = blockIdx.x * kThreads + threadIdx.x;
   const int key = j < n_r ? rk[j] : 0;
   int c = 0;
@@ -99,15 +113,18 @@ __global__ void layout_cols_kernel(const int* __restrict__ lk,
 }  // namespace
 
 // Launch both kernels on `stream`; returns cudaGetLastError() after them.
-// Requires n_l >= 1 and n_r >= 1 (the binding checks both).
-extern "C" int match_layout_launch(const int* lk, const int* rk, int n_l,
-                                   int n_r, int* counts, int* first, int* b,
-                                   int* cl, cudaStream_t stream) {
-  layout_rows_kernel<<<(n_l + kThreads - 1) / kThreads, kThreads, 0,
-                       stream>>>(lk, rk, n_l, n_r, counts, first, b);
+// Requires 1 <= lanes <= 65535, n_l >= 1 and n_r >= 1 (the binding checks
+// all three).
+extern "C" int match_layout_launch(const int* lk, const int* rk, int lanes,
+                                   int n_l, int n_r, int* counts, int* first,
+                                   int* b, int* cl, cudaStream_t stream) {
+  const dim3 rows_grid((n_l + kThreads - 1) / kThreads, lanes);
+  layout_rows_kernel<<<rows_grid, kThreads, 0, stream>>>(lk, rk, n_l, n_r,
+                                                        counts, first, b);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  layout_cols_kernel<<<(n_r + kThreads - 1) / kThreads, kThreads, 0,
-                       stream>>>(lk, rk, n_l, n_r, cl);
+  const dim3 cols_grid((n_r + kThreads - 1) / kThreads, lanes);
+  layout_cols_kernel<<<cols_grid, kThreads, 0, stream>>>(lk, rk, n_l, n_r,
+                                                        cl);
   return static_cast<int>(cudaGetLastError());
 }

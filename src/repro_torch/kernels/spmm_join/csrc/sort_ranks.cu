@@ -5,6 +5,9 @@
 //
 //   rank[i] = #{j : k_j < k_i} + #{j < i : k_j == k_i}
 //
+// Stacked form: `lanes` independent key rows, the lane in the grid's y
+// dimension (one launch for a stacked batch; one lane for a single call).
+//
 // Bound on the H100: operations, n^2 int32 compares (n * 4 bytes in,
 // n * 4 bytes out). Design: one thread per row; the keys are streamed
 // through a shared-memory tile, read once from device memory per block and
@@ -23,6 +26,9 @@ constexpr int kTile = 2048;
 __global__ void sort_ranks_kernel(const int* __restrict__ keys, int n,
                                   int* __restrict__ rank) {
   __shared__ int tile[kTile];
+  const size_t lane = static_cast<size_t>(blockIdx.y) * n;
+  keys += lane;
+  rank += lane;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const int key = i < n ? keys[i] : 0;
   int acc = 0;
@@ -44,10 +50,10 @@ __global__ void sort_ranks_kernel(const int* __restrict__ keys, int n,
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() after the launch.
-// Requires n >= 1 (the binding checks it).
-extern "C" int sort_ranks_launch(const int* keys, int n, int* rank,
+// Requires 1 <= lanes <= 65535 and n >= 1 (the binding checks both).
+extern "C" int sort_ranks_launch(const int* keys, int lanes, int n, int* rank,
                                  cudaStream_t stream) {
-  sort_ranks_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      keys, n, rank);
+  const dim3 grid((n + kThreads - 1) / kThreads, lanes);
+  sort_ranks_kernel<<<grid, kThreads, 0, stream>>>(keys, n, rank);
   return static_cast<int>(cudaGetLastError());
 }

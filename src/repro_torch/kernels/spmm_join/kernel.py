@@ -1,5 +1,6 @@
 """ctypes bindings of the CUDA layout kernels (csrc/match_layout.cu and
-csrc/sort_ranks.cu)."""
+csrc/sort_ranks.cu). Each takes (n,) inputs or a stack of lanes (lanes, n)
+and launches once either way."""
 from __future__ import annotations
 
 import ctypes
@@ -22,34 +23,34 @@ def _launcher(stem: str, argtypes: tuple):
     return fn
 
 
-def _check_keys(x: torch.Tensor, what: str) -> None:
-    if not x.is_cuda or x.dtype != torch.int32 or x.dim() != 1:
-        raise ValueError(
-            f"{what}: expected a 1-D int32 CUDA tensor, got "
-            f"{x.dtype} {tuple(x.shape)} on {x.device}"
-        )
-    if not x.is_contiguous():
-        raise ValueError(f"{what}: expected a contiguous tensor")
-    if not 1 <= x.shape[0] < 2**31:
-        raise ValueError(f"{what}: length {x.shape[0]} out of range")
+def _check_keys(x: torch.Tensor, what: str) -> tuple[int, int]:
+    kernels.check_int32(x, what)
+    lanes, n = kernels.lanes_of(x)
+    if not 1 <= n < 2**31:
+        raise ValueError(f"{what}: length {n} out of range")
+    return lanes, n
 
 
 def match_layout_cuda(left_keys: torch.Tensor, right_keys: torch.Tensor):
     """(counts, first, b) per left row and cl per right row, on the card."""
-    _check_keys(left_keys, "left_keys")
-    _check_keys(right_keys, "right_keys")
-    if left_keys.device != right_keys.device:
-        raise ValueError("left and right keys must be on one device")
+    lanes, n_l = _check_keys(left_keys, "left_keys")
+    r_lanes, n_r = _check_keys(right_keys, "right_keys")
+    if (left_keys.dim() != right_keys.dim() or lanes != r_lanes
+            or left_keys.device != right_keys.device):
+        raise ValueError("left and right keys must stack the same lanes "
+                         "on one device")
     dev = left_keys.device
-    n_l, n_r = left_keys.shape[0], right_keys.shape[0]
     counts, first, b = (
-        torch.empty(n_l, dtype=torch.int32, device=dev) for _ in range(3)
+        torch.empty(left_keys.shape, dtype=torch.int32, device=dev)
+        for _ in range(3)
     )
-    cl = torch.empty(n_r, dtype=torch.int32, device=dev)
-    fn = _launcher("match_layout", (_P, _P, _I, _I, _P, _P, _P, _P, _P))
+    cl = torch.empty(right_keys.shape, dtype=torch.int32, device=dev)
+    if lanes == 0:
+        return counts, first, b, cl
+    fn = _launcher("match_layout", (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P))
     with torch.cuda.device(dev):
         err = fn(
-            left_keys.data_ptr(), right_keys.data_ptr(), n_l, n_r,
+            left_keys.data_ptr(), right_keys.data_ptr(), lanes, n_l, n_r,
             counts.data_ptr(), first.data_ptr(), b.data_ptr(), cl.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -60,13 +61,15 @@ def match_layout_cuda(left_keys: torch.Tensor, right_keys: torch.Tensor):
 
 def sort_ranks_cuda(keys: torch.Tensor) -> torch.Tensor:
     """Each key's stable sorted position, on the card."""
-    _check_keys(keys, "keys")
+    lanes, n = _check_keys(keys, "keys")
     dev = keys.device
-    rank = torch.empty(keys.shape[0], dtype=torch.int32, device=dev)
-    fn = _launcher("sort_ranks", (_P, _I, _P, _P))
+    rank = torch.empty(keys.shape, dtype=torch.int32, device=dev)
+    if lanes == 0:
+        return rank
+    fn = _launcher("sort_ranks", (_P, _I, _I, _P, _P))
     with torch.cuda.device(dev):
         err = fn(
-            keys.data_ptr(), keys.shape[0], rank.data_ptr(),
+            keys.data_ptr(), lanes, n, rank.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     kernels.check_launch("sort_ranks", err)

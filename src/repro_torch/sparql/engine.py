@@ -16,6 +16,11 @@ The public API is layered around prepared queries:
   pq.explain()         -> str             algebra tree, physical plan,
                                           bucket capacities, cache state
   engine.query(text)   -> list[dict]      thin wrapper: prepare().run().rows
+  engine.run_batch(ps) -> list[ResultSet] micro-batch execution: same-shape
+                                          queries coalesce into stacked
+                                          (vmapped) device dispatches —
+                                          N warm same-shape queries cost
+                                          ceil(N / width) dispatches
   engine.update(text)  -> UpdateResult    INSERT DATA / DELETE DATA against
                                           the store's delta blocks; warm
                                           plan shapes survive the write
@@ -54,6 +59,7 @@ import pathlib
 import threading
 import time
 from collections import OrderedDict
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -74,6 +80,17 @@ from repro_torch.sparql.store import StoreStatistics, TripleStore
 # from int32 overflow in `offset + limit`).
 _NO_LIMIT = 1 << 30
 
+# Lane cap per stacked run_batch dispatch: it bounds device memory per
+# dispatch, and chunks are cut at its pow-2 floor.
+MAX_BATCH_WIDTH = 64
+# Cross-shape padded stacking: run_batch coalesces near-miss PlanShapes
+# (identical but for pow-2 scan caps) into one stacked dispatch by padding
+# scans up to the group's max caps — padding rows are valid=False, hence
+# invisible to every masked operator. A merge is taken only when every
+# member shape is already warm and the padding waste (padded/real scan-cell
+# ratio - 1) stays at or under this limit.
+PAD_WASTE_LIMIT = 2.0
+
 
 @dataclasses.dataclass
 class ExecStats:
@@ -87,6 +104,10 @@ class ExecStats:
     cache_misses: int = 0
     n_compiles: int = 0  # plan programs built by this query
     n_dispatches: int = 0  # device program launches (warm target: 1)
+    # stacked-batch accounting: width of the vmapped dispatch that served
+    # this run (0 = solo). Batchmates share one dispatch, so their
+    # n_dispatches/n_compiles report the chunk's shared counts.
+    batch_width: int = 0
     # the store version this run's scans were staged at (-1 = not set):
     # the snapshot the results are consistent with
     store_version: int = -1
@@ -117,6 +138,7 @@ class ExecStats:
         self.cache_misses += other.cache_misses
         self.n_compiles += other.n_compiles
         self.n_dispatches += other.n_dispatches
+        self.batch_width = max(self.batch_width, other.batch_width)
         self.store_version = max(self.store_version, other.store_version)
         self.device_time_s += other.device_time_s
         if other.rows_emitted >= 0:
@@ -142,6 +164,35 @@ class PlanCacheEntry:
     shape: plan_ir.PlanShape
     join_caps: tuple[int, ...]
     compiled: ex.CompiledPlan
+    # (width, per-scan stacked/broadcast axes) -> stacked program at THESE
+    # join caps (built on demand by run_batch; reset when an overflow
+    # regrow replaces the entry)
+    batched: dict[tuple, ex.CompiledBatch] = dataclasses.field(
+        default_factory=dict
+    )
+    # (width, axes) layouts persisted by a previous process (save_cache
+    # round-trips them even before this process serves a stacked batch);
+    # files that carry widths only load as all-stacked
+    warm_layouts: tuple[tuple, ...] = ()
+
+    def widths(self) -> tuple[int, ...]:
+        """Known stacked widths for this signature: built this process (at
+        any scan layout) plus persisted from the warmup file."""
+        return tuple(
+            sorted(
+                {k[0] for k in self.batched}
+                | {w for w, _ in self.warm_layouts}
+            )
+        )
+
+    def layouts(self) -> tuple[tuple, ...]:
+        """Known (width, scan_axes) stacked layouts for this signature."""
+        return tuple(
+            sorted(
+                set(self.batched) | set(self.warm_layouts),
+                key=lambda k: (k[0], str(k[1])),
+            )
+        )
 
 
 class PlanCache:
@@ -186,6 +237,35 @@ class PlanCache:
 
 
 @dataclasses.dataclass
+class BatchGroupStats:
+    """run_batch accounting for one plan group (shared PlanShape).
+
+    `n_dispatches` counts every device dispatch the group made — stacked
+    chunks, overflow retries, and the sequential calibration run of a cold
+    group — so ceil(N/width) is directly assertable. `widths` lists the
+    bucketed lane width of each stacked chunk, in dispatch order."""
+
+    n_queries: int
+    widths: tuple[int, ...] = ()
+    n_dispatches: int = 0
+    n_compiles: int = 0
+    cold: bool = False  # group paid calibration/compilation this batch
+    # a stacked chunk outgrew max_capacity (MemoryError) and its queries
+    # ran one by one so only the culprit fails; any other failure of a
+    # stacked dispatch propagates
+    fallback: bool = False
+    # scan positions shipped ONCE (vmap in_dims None) because every lane's
+    # pattern was identical — the same-query-different-FILTER win: those
+    # buffers skip the W-copy stacking entirely
+    n_broadcast_scans: int = 0
+    # cross-shape padding: this group coalesced `n_shapes` near-miss
+    # PlanShapes (same plan DAG, smaller pow-2 scan caps) into one stacked
+    # signature by padding every lane's scans up to the group's max caps
+    padded: bool = False
+    n_shapes: int = 1
+
+
+@dataclasses.dataclass
 class _Program:
     """A planned query: scan order, join structure, runtime constants.
 
@@ -207,6 +287,34 @@ class _Program:
     projection: tuple[str, ...]
     distinct: bool
     has_slice: bool
+
+
+@dataclasses.dataclass
+class _BatchCtx:
+    """Per-query HOST staging for run_batch: the program, its plan-cache
+    key and the canonical->original name mapping. Deliberately holds no
+    device tensors — scans are re-fetched from the store's bounded caches
+    per batch, so a cached PreparedQuery handle never pins device buffers
+    past the scan cache's eviction policy. `store_version` records the
+    version the shape was computed at: a write can move a pattern into a
+    bigger capacity bucket, so a stale ctx is recomputed before grouping."""
+
+    prog: _Program
+    shape: plan_ir.PlanShape
+    inverse: dict[str, str]
+    store_version: int = -1
+
+
+class _ChunkInputs(NamedTuple):
+    """The device inputs of one stacked dispatch (engine._stage_chunk)."""
+
+    scans: tuple[Relation, ...]
+    scan_axes: tuple  # per scan: 0 = stacked, None = broadcast
+    consts_i: torch.Tensor  # (width, n_i)
+    consts_f: torch.Tensor  # (width, n_f)
+    num_vals: torch.Tensor  # shared by every lane
+    active: torch.Tensor  # (width,) bool: lanes carrying real queries
+    store_version: int
 
 
 class ResultSet:
@@ -242,17 +350,29 @@ class ResultSet:
 
 
 class _SharedFetch:
-    """The device→host transfer of one dispatch's result.
+    """One device→host transfer shared by every lane of a stacked chunk
+    (or the one result of a solo run).
 
-    The transfer is LAZY: whichever consumer resolves first pays the
-    (single) sync, and the device buffers are dropped immediately after so
-    a slow decode never pins device memory longer than one transfer."""
+    The transfer is LAZY: the batcher thread hands lanes to the decode
+    pool holding only device references; whichever decode worker resolves
+    its lane first pays the (single) sync, and the device buffers are
+    dropped immediately after so a slow decode queue never pins a chunk's
+    device memory longer than one transfer.
 
-    __slots__ = ("_lock", "_rel", "cols", "valid", "transfer_s")
+    The fetch may run on another thread than the dispatch, whose current
+    stream may differ: a CUDA event recorded on the dispatching thread's
+    stream when the result is handed over orders the copy after the
+    dispatch's kernels."""
+
+    __slots__ = ("_lock", "_rel", "_ready", "cols", "valid", "transfer_s")
 
     def __init__(self, rel: Relation):
         self._lock = threading.Lock()
         self._rel: Relation | None = rel
+        self._ready = None
+        if rel.cols.is_cuda:
+            self._ready = torch.cuda.Event()
+            self._ready.record(torch.cuda.current_stream(rel.cols.device))
         self.cols: np.ndarray | None = None
         self.valid: np.ndarray | None = None
         self.transfer_s = 0.0
@@ -263,6 +383,9 @@ class _SharedFetch:
         with self._lock:
             if self._rel is not None:
                 t0 = time.perf_counter()
+                if self._ready is not None:
+                    dev = self._rel.cols.device
+                    torch.cuda.current_stream(dev).wait_event(self._ready)
                 self.cols = self._rel.cols.cpu().numpy()
                 self.valid = self._rel.valid.cpu().numpy()
                 self.transfer_s = time.perf_counter() - t0
@@ -273,20 +396,29 @@ class _SharedFetch:
 
 class PendingDecode:
     """A dispatched query's undecoded result: result buffers (device-side
-    until the first consumer fetches) plus what is needed to materialise
-    rows. `resolve()` is the transfer + row decode + per-handle
-    accounting."""
+    until the first consumer fetches) plus the lane metadata needed to
+    materialise rows.
 
-    __slots__ = ("engine", "pq", "vars", "names", "fetch", "stats", "trace")
+    This is the unit the serving pipeline passes from the dispatch stage
+    to the decode stage — `run_batch_pipelined` returns one per slot, and
+    `resolve()` (the transfer + row decode + per-handle accounting) runs
+    on a decode worker, overlapping the batcher thread's next dispatch.
+    `lane` selects this query's slice of a stacked chunk (None for a solo
+    run whose buffers are already 2-D)."""
+
+    __slots__ = ("engine", "pq", "vars", "names", "fetch", "lane", "stats",
+                 "trace")
 
     def __init__(self, engine: "QueryEngine", pq: "PreparedQuery",
                  vars: tuple[str, ...], names: tuple[str, ...],
-                 fetch: _SharedFetch, stats: ExecStats, trace=None):
+                 fetch: _SharedFetch, lane: "int | None", stats: ExecStats,
+                 trace=None):
         self.engine = engine
         self.pq = pq
         self.vars = vars
         self.names = names
         self.fetch = fetch
+        self.lane = lane
         self.stats = stats
         self.trace = trace
 
@@ -294,9 +426,13 @@ class PendingDecode:
         t0 = time.perf_counter()
         cols, valid, paid = self.fetch.fetch()
         t1 = time.perf_counter()
+        if self.lane is not None:
+            cols, valid = cols[self.lane], valid[self.lane]
         rows = self.engine._decode_numpy(self.names, cols[valid])
         t2 = time.perf_counter()
         if self.trace is not None:
+            # the sharing lanes' "transfer" span is their wait on the
+            # paying lane's sync (usually ~0): attrs distinguish them
             self.trace.add_span("transfer", t0, t1, paid=paid,
                                 transfer_s=round(self.fetch.transfer_s, 6))
             self.trace.add_span("decode", t1, t2, rows=len(rows))
@@ -322,6 +458,7 @@ class PreparedQuery:
         self.text = text
         self.query = query
         self._program = engine._build_program(query)
+        self._batch_ctx: _BatchCtx | None = None  # run_batch staging cache
         self.stats = ExecStats()  # accumulated across runs
         self.last_stats: ExecStats | None = None
         self.n_runs = 0
@@ -341,6 +478,7 @@ class PreparedQuery:
         if self.planned_version == self.engine.store.version:
             return False
         self._program = self.engine._build_program(self.query)
+        self._batch_ctx = None
         self.planned_version = self.engine.store.version
         return True
 
@@ -350,12 +488,13 @@ class PreparedQuery:
     def _run_pending(self, trace=None) -> PendingDecode:
         """Dispatch the query, returning its result as a PendingDecode:
         device work is enqueued, host decode is not yet paid. run() is
-        `_run_pending().resolve()`."""
+        `_run_pending().resolve()`; the pipelined server resolves on a
+        decode worker instead."""
         stats = ExecStats()
         rel = self.engine._execute_program(self._program, stats, trace)
         return PendingDecode(
             self.engine, self, self._program.projection, rel.schema,
-            _SharedFetch(rel), stats, trace,
+            _SharedFetch(rel), None, stats, trace,
         )
 
     def explain(self, analyze: bool = False) -> str:
@@ -396,7 +535,9 @@ class QueryEngine:
     join_backend: str | None = None
     warmup_path: str | None = None  # saved bucket signatures (save_cache)
     # per-query span tracing: None (default) = off, zero overhead beyond
-    # `trace is not None` checks on the dispatch path.
+    # `trace is not None` checks on the dispatch path. The server shares
+    # this Tracer so its request spans and the engine's dispatch spans
+    # land in one trace tree.
     tracer: Tracer | None = None
 
     def __post_init__(self):
@@ -411,6 +552,10 @@ class QueryEngine:
         # here compiles directly at the saved capacities, skipping the
         # eager calibration run entirely
         self._warm_caps: dict[plan_ir.PlanShape, tuple[int, ...]] = {}
+        # persisted stacked (width, scan_axes) layouts per shape; files
+        # written before run_batch existed simply have none, and files
+        # from before broadcast scans carry widths only (all-stacked)
+        self._warm_layouts: dict[plan_ir.PlanShape, tuple[tuple, ...]] = {}
         if self.warmup_path is not None:
             p = pathlib.Path(self.warmup_path)
             if p.exists():
@@ -419,8 +564,7 @@ class QueryEngine:
                 # store's lazy cache with it so backend choices (hence plan
                 # shapes) match the saved signatures exactly. Older files
                 # (v1/v2) have no catalog — the store computes its own,
-                # which is identical for the same triples. Stacked-batch
-                # widths and layouts in the file are not used here.
+                # which is identical for the same triples.
                 stats_blob = data.get("statistics")
                 if stats_blob is not None and self.store._statistics is None:
                     self.store._statistics = StoreStatistics.from_jsonable(
@@ -431,11 +575,36 @@ class QueryEngine:
                     self._warm_caps[shape] = tuple(
                         int(c) for c in e["join_caps"]
                     )
+                    layouts = [
+                        (int(w), tuple(axes))
+                        for w, axes in e.get("layouts", ())
+                    ]
+                    stacked = (0,) * len(shape.scan_schemas)
+                    for w in e.get("widths", ()):
+                        if not any(lw == int(w) for lw, _ in layouts):
+                            layouts.append((int(w), stacked))
+                    if layouts:
+                        self._warm_layouts[shape] = tuple(layouts)
+        # stacked-batch counters (cumulative; server stats report them)
+        self.batch_width_hist: dict[int, int] = {}
+        self.stacked_dispatches = 0
+        self.stacked_queries = 0
+        self.last_batch: list[BatchGroupStats] = []
+        # cross-shape padding counters: merges taken / rejected by the
+        # cost guard, and the cell ledger behind the waste ratio
+        # (padded_cells >= real_cells; their gap is what padding burned)
+        self.padded_groups = 0
+        self.pad_rejects = 0
+        self.padded_cells = 0
+        self.real_cells = 0
+        # correlates the N lane "dispatch" spans a stacked chunk fans out
+        self._dispatch_seq = 0
         # cumulative wall seconds the host spent inside device dispatch +
         # result sync (device idle share = 1 - Δdevice_time_s / wall)
         self.device_time_s = 0.0
         # the unified metrics registry: engine-side counters are bridged
-        # in by a scrape-time collector (the dispatch path pays nothing)
+        # in by a scrape-time collector (the dispatch path pays nothing);
+        # the server registers its request metrics on this same registry
         self.metrics = MetricsRegistry()
         self._register_metrics()
 
@@ -460,6 +629,24 @@ class QueryEngine:
             "scan_evictions": m.counter(
                 "mapsq_scan_cache_evictions_total",
                 "scan cache entries dropped by writes"),
+            "stacked_dispatches": m.counter(
+                "mapsq_stacked_dispatches_total",
+                "vmapped multi-query device dispatches"),
+            "stacked_queries": m.counter(
+                "mapsq_stacked_queries_total",
+                "queries served by stacked dispatches"),
+            "padded_groups": m.counter(
+                "mapsq_padding_groups_total",
+                "cross-shape padded merges taken"),
+            "pad_rejects": m.counter(
+                "mapsq_padding_rejects_total",
+                "padded merges rejected by the waste guard"),
+            "padded_cells": m.counter(
+                "mapsq_padding_padded_cells_total",
+                "scan cells dispatched incl. padding"),
+            "real_cells": m.counter(
+                "mapsq_padding_real_cells_total",
+                "scan cells that were real data"),
             "device_time": m.counter(
                 "mapsq_device_time_seconds_total",
                 "host wall seconds inside device dispatch + sync"),
@@ -486,6 +673,12 @@ class QueryEngine:
             g["scan_hits"].set_total(sc.get("hits", 0))
             g["scan_misses"].set_total(sc.get("misses", 0))
             g["scan_evictions"].set_total(sc.get("evictions", 0))
+            g["stacked_dispatches"].set_total(self.stacked_dispatches)
+            g["stacked_queries"].set_total(self.stacked_queries)
+            g["padded_groups"].set_total(self.padded_groups)
+            g["pad_rejects"].set_total(self.pad_rejects)
+            g["padded_cells"].set_total(self.padded_cells)
+            g["real_cells"].set_total(self.real_cells)
             g["device_time"].set_total(self.device_time_s)
             ws = self.store.write_stats()
             g["store_version"].set(ws["version"])
@@ -515,12 +708,18 @@ class QueryEngine:
 
         A `QueryEngine(warmup_path=...)` in a restarted process compiles
         known shapes straight at these capacities — no calibration run.
+        Each entry carries the stacked batch widths and (width, scan axes)
+        layouts seen for the shape (built this process or inherited from a
+        previous warmup file), so (shape, caps, width) signatures
+        round-trip across restarts; files without them load unchanged.
         Returns the number of signatures written.
         """
         entries = [
             {
                 "shape": plan_ir.shape_to_jsonable(e.shape),
                 "join_caps": list(e.join_caps),
+                "widths": list(e.widths()),
+                "layouts": [[w, list(axes)] for w, axes in e.layouts()],
             }
             for e in self.plan_cache.entries()
         ]
@@ -598,6 +797,432 @@ class QueryEngine:
             "scan_cache": self.store.scan_cache_stats(),
             "store": self.store.write_stats(),
         }
+
+    def run_batch(self, prepared: list[PreparedQuery]) -> list[ResultSet]:
+        """Execute a micro-batch, coalescing same-shape queries.
+
+        Queries are grouped by compiled plan signature (PlanShape); each
+        warm group runs as ONE stacked device dispatch per pow-2 width
+        chunk (vmap over scan tuples and runtime constants), so N warm
+        same-shape queries cost ceil(N / width) dispatches instead of N.
+        Mixed batches fall back per-group; a cold group calibrates on its
+        first query and stacks the rest. Results are positionally aligned
+        with `prepared`. Per-group accounting lands in `self.last_batch`;
+        the first failing query's exception is re-raised (use
+        `run_batch_outcomes` for per-query error isolation).
+        """
+        outcomes = self.run_batch_outcomes(prepared)
+        for oc in outcomes:
+            if isinstance(oc, Exception):
+                raise oc
+        return outcomes
+
+    def run_batch_outcomes(
+        self, prepared: list[PreparedQuery]
+    ) -> list["ResultSet | Exception"]:
+        """run_batch with per-query error isolation: each slot is either a
+        ResultSet or the exception that query raised (the server's batch
+        path relies on one bad query never failing its batchmates)."""
+        return self._run_batch_impl(prepared, defer=False)
+
+    def run_batch_pipelined(
+        self, prepared: list[PreparedQuery], traces: "list | None" = None
+    ) -> list["Exception | PendingDecode"]:
+        """The serving pipeline's dispatch stage: like run_batch_outcomes,
+        but slots whose device work dispatched cleanly come back as
+        PendingDecode — the host decode (device→host transfer + row
+        materialisation + per-handle accounting) has NOT been paid, and
+        `.resolve()` may run on any thread. The batcher thread returns as
+        soon as device work is enqueued, so dispatch of batch k+1 overlaps
+        decode of batch k on the decode pool."""
+        return self._run_batch_impl(prepared, defer=True, traces=traces)
+
+    def _run_batch_impl(
+        self, prepared: list[PreparedQuery], defer: bool,
+        traces: "list | None" = None,
+    ) -> list:
+        self.last_batch = []
+        out: list = [None] * len(prepared)
+        if traces is None:
+            traces = [None] * len(prepared)
+        if not self.compiled:
+            group = BatchGroupStats(n_queries=len(prepared), fallback=True)
+            self.last_batch.append(group)
+            for i, pq in enumerate(prepared):
+                out[i] = self._run_single(pq, group, defer, traces[i])
+            return out
+        # group by compiled plan signature (the PlanShape cache key)
+        ctxs: list[_BatchCtx | None] = [None] * len(prepared)
+        groups: OrderedDict[plan_ir.PlanShape, list[int]] = OrderedDict()
+        for i, pq in enumerate(prepared):
+            try:
+                # staging is stable per handle between writes (program,
+                # cache key) — compute once, reuse across micro-batches,
+                # recompute after a store version bump (a write can move a
+                # pattern into a bigger capacity bucket = a new shape)
+                if (
+                    pq._batch_ctx is None
+                    or pq._batch_ctx.store_version != self.store.version
+                ):
+                    pq._batch_ctx = self._batch_context(pq._program)
+                ctxs[i] = pq._batch_ctx
+            except Exception as e:
+                out[i] = e
+                continue
+            groups.setdefault(ctxs[i].shape, []).append(i)
+        merged: OrderedDict[plan_ir.PlanShape, tuple[list[int], int, int]]
+        if len(groups) > 1:
+            merged = self._coalesce_groups(groups)
+        else:
+            merged = OrderedDict(
+                (s, (idxs, 1, 0)) for s, idxs in groups.items()
+            )
+        for shape, (idxs, n_shapes, n_compiles) in merged.items():
+            self._run_group(
+                shape, idxs, ctxs, prepared, out, defer,
+                n_shapes=n_shapes, extra_compiles=n_compiles,
+                traces=traces,
+            )
+        return out
+
+    def _coalesce_groups(
+        self, groups: "OrderedDict[plan_ir.PlanShape, list[int]]"
+    ) -> "OrderedDict[plan_ir.PlanShape, tuple[list[int], int, int]]":
+        """Cross-shape padded stacking: merge near-miss plan groups —
+        identical PlanShapes except for pow-2 scan caps — into one padded
+        group at the per-position MAX caps, so a mixed-shape batch still
+        coalesces into few stacked dispatches. Padding rows carry
+        valid=False, which every masked operator already treats as
+        absent, so merged lanes decode exactly the rows their natural
+        shape would have produced.
+
+        Guards (a rejected bucket simply keeps its per-shape groups):
+          * every member shape must be WARM — a padded group has no
+            calibration story of its own, so the padded entry's join caps
+            are derived as the elementwise max of the members' calibrated
+            caps, which only exist once each member has run;
+          * the cost guard: padding waste (padded/real scan-cell ratio
+            minus 1) must stay <= PAD_WASTE_LIMIT, so one huge outlier
+            shape cannot inflate every lane's scan buffers.
+        """
+        buckets: OrderedDict[tuple, list[plan_ir.PlanShape]] = OrderedDict()
+        for shape in groups:
+            key = dataclasses.replace(
+                shape, scan_caps=(0,) * len(shape.scan_caps)
+            )
+            buckets.setdefault(key, []).append(shape)
+        merged: OrderedDict[
+            plan_ir.PlanShape, tuple[list[int], int, int]
+        ] = OrderedDict()
+        for members in buckets.values():
+            if len(members) < 2:
+                s = members[0]
+                merged[s] = (groups[s], 1, 0)
+                continue
+            entries = [self.plan_cache.get(s) for s in members]
+            target = tuple(
+                max(s.scan_caps[j] for s in members)
+                for j in range(len(members[0].scan_caps))
+            )
+            n_q = sum(len(groups[s]) for s in members)
+            real = sum(
+                len(groups[s]) * sum(s.scan_caps) for s in members
+            )
+            padded = n_q * sum(target)
+            ok = all(e is not None for e in entries)
+            if ok and (padded - real) / real > PAD_WASTE_LIMIT:
+                self.pad_rejects += 1
+                ok = False
+            if not ok:
+                for s in members:
+                    merged[s] = (groups[s], 1, 0)
+                continue
+            padded_shape = dataclasses.replace(members[0], scan_caps=target)
+            n_compiles = 0
+            if self.plan_cache.get(padded_shape) is None:
+                join_caps = tuple(
+                    max(e.join_caps[j] for e in entries)
+                    for j in range(len(entries[0].join_caps))
+                )
+                sink = ExecStats()
+                self._compile_entry(padded_shape, join_caps, sink)
+                n_compiles = sink.n_compiles
+            idxs = sorted(
+                i for s in members for i in groups[s]
+            )  # arrival order across member groups
+            merged[padded_shape] = (idxs, len(members), n_compiles)
+            self.padded_groups += 1
+            self.padded_cells += padded
+            self.real_cells += real
+        return merged
+
+    # -- batched execution internals ---------------------------------------
+    def _batch_context(self, prog: _Program) -> _BatchCtx:
+        with self.store.snapshot_lock():
+            _, shape, inverse = self._canonicalize(prog)
+            version = self.store.version
+        return _BatchCtx(
+            prog=prog, shape=shape, inverse=inverse, store_version=version
+        )
+
+    def _run_single(
+        self, pq: PreparedQuery, group: BatchGroupStats, defer: bool = False,
+        trace=None,
+    ) -> "ResultSet | Exception | PendingDecode":
+        """Sequential path inside run_batch: the normal per-query path,
+        with its dispatch/compile counts folded into the group's. With
+        `defer`, host decode is left pending for the decode stage. A
+        failure is this query's outcome, returned to its caller."""
+        try:
+            pending = pq._run_pending(trace)
+        except Exception as e:
+            return e
+        group.n_dispatches += pending.stats.n_dispatches
+        group.n_compiles += pending.stats.n_compiles
+        return pending if defer else pending.resolve()
+
+    def _run_group(
+        self,
+        shape: plan_ir.PlanShape,
+        idxs: list[int],
+        ctxs: list["_BatchCtx | None"],
+        prepared: list[PreparedQuery],
+        out: list,
+        defer: bool = False,
+        n_shapes: int = 1,
+        extra_compiles: int = 0,
+        traces: "list | None" = None,
+    ) -> None:
+        if traces is None:
+            traces = [None] * len(out)
+        group = BatchGroupStats(
+            n_queries=len(idxs),
+            padded=n_shapes > 1,
+            n_shapes=n_shapes,
+            n_compiles=extra_compiles,  # the padded entry's compile
+        )
+        self.last_batch.append(group)
+        pos = 0
+        if self.plan_cache.get(shape) is None:
+            # cold shape: the first query runs the normal path (calibration
+            # or warmup compile), populating the cache the rest stack on
+            group.cold = True
+            out[idxs[0]] = self._run_single(
+                prepared[idxs[0]], group, defer, traces[idxs[0]]
+            )
+            pos = 1
+        # chunk at the pow-2 floor of the lane cap: MAX_BATCH_WIDTH bounds
+        # device memory per dispatch, so it must never round UP
+        width_cap = plan_ir.floor_pow2(MAX_BATCH_WIDTH)
+        while pos < len(idxs):
+            chunk = idxs[pos:pos + width_cap]
+            pos += len(chunk)
+            if len(chunk) < 2 or self.plan_cache.get(shape) is None:
+                for i in chunk:
+                    out[i] = self._run_single(prepared[i], group, defer)
+                continue
+            try:
+                self._run_chunk_stacked(
+                    shape, chunk, ctxs, prepared, out, group, defer, traces
+                )
+            except MemoryError:
+                # a lane's bucket regrow passed max_capacity: re-run the
+                # chunk's queries one by one so only the culprit fails.
+                # Every other failure of a stacked dispatch (a refused
+                # kernel launch, a CUDA error) propagates.
+                group.fallback = True
+                for i in chunk:
+                    out[i] = self._run_single(
+                        prepared[i], group, defer, traces[i]
+                    )
+
+    def _stage_chunk(
+        self, shape: plan_ir.PlanShape, lanes: list[_BatchCtx], n: int
+    ) -> _ChunkInputs:
+        """The device inputs of one stacked dispatch over `lanes` (the
+        chunk's contexts, trailing padding lanes repeating lane 0), of
+        which the first `n` carry real queries.
+
+        Per scan position: if every lane scans the SAME pattern (e.g. a
+        batch differing only in FILTER constants) AND its staged buffer
+        already sits at the group's capacity, the device buffer ships once
+        and vmap broadcasts it (in_dims None) instead of staging W stacked
+        copies. For a PADDED group (`shape` is the coalesced max-caps
+        signature) every stacked lane is padded up to `shape.scan_caps`."""
+        scans: list[Relation] = []
+        axes: list[int | None] = []
+        with self.store.snapshot_lock():  # one store version per chunk
+            for j, schema in enumerate(shape.scan_schemas):
+                cap = shape.scan_caps[j]
+                tps = tuple(c.prog.patterns[j] for c in lanes)
+                rel = None
+                if len({self.store._scan_key(tp) for tp in tps}) == 1:
+                    rel = self.store.match_pattern_device(tps[0], self.device)
+                if rel is not None and rel.capacity == cap:
+                    scans.append(Relation(schema, rel.cols, rel.valid))
+                    axes.append(None)
+                else:
+                    scans.append(Relation(
+                        schema,
+                        *self.store.stacked_scan_device(
+                            tps, self.device, cap=cap
+                        ),
+                    ))
+                    axes.append(0)
+            version = self.store.version
+        return _ChunkInputs(
+            tuple(scans),
+            tuple(axes),
+            torch.from_numpy(
+                np.stack([c.prog.consts_i for c in lanes])
+            ).to(self.device),
+            torch.from_numpy(
+                np.stack([c.prog.consts_f for c in lanes])
+            ).to(self.device),
+            self.store.numeric_values_device(self.device),
+            torch.from_numpy(np.arange(len(lanes)) < n).to(self.device),
+            version,
+        )
+
+    def _run_chunk_stacked(
+        self,
+        shape: plan_ir.PlanShape,
+        chunk: list[int],
+        ctxs: list["_BatchCtx | None"],
+        prepared: list[PreparedQuery],
+        out: list,
+        group: BatchGroupStats,
+        defer: bool = False,
+        traces: "list | None" = None,
+    ) -> None:
+        """ONE stacked dispatch for a chunk of warm same-shape queries."""
+        entry = self.plan_cache.get(shape)
+        n = len(chunk)
+        width = plan_ir.bucket_width(n, MAX_BATCH_WIDTH)
+        # pad trailing lanes with lane 0's inputs; lane_active masks them
+        lanes = [ctxs[i] for i in chunk] + [ctxs[chunk[0]]] * (width - n)
+        inp = self._stage_chunk(shape, lanes, n)
+        group.n_broadcast_scans += sum(1 for a in inp.scan_axes if a is None)
+        stats = ExecStats(
+            n_joins=shape.n_joins(),
+            cache_hits=1,
+            batch_width=width,
+            store_version=inp.store_version,
+        )
+        self.plan_cache.hits += n
+        # retroactive span intervals, fanned out to every lane trace after
+        # the chunk succeeds (one device dispatch -> N lane "dispatch"
+        # spans correlated by a shared dispatch_id)
+        events: list[tuple[str, float, float]] = []
+        ovf_counts = [0] * shape.n_joins()
+        try:
+            while True:
+                bexec = entry.batched.get((width, inp.scan_axes))
+                if bexec is None:
+                    tc0 = time.perf_counter()
+                    bexec = ex.compile_plan_batched(
+                        entry.compiled.plan, width, inp.scan_axes
+                    )
+                    events.append(("compile", tc0, time.perf_counter()))
+                    entry.batched[(width, inp.scan_axes)] = bexec
+                    stats.n_compiles += 1
+                    self.plan_cache.compiles += 1
+                stats.n_dispatches += 1
+                t0 = time.perf_counter()
+                rel_b, totals_b, flags_b = bexec(
+                    inp.scans, inp.consts_i, inp.consts_f, inp.num_vals,
+                    inp.active,
+                )
+                flags_np = flags_b.cpu().numpy()  # the single host sync
+                events.append(("dispatch", t0, self._device_tick(stats, t0)))
+                if not flags_np.any():
+                    break
+                # some lane overflowed a bucket: grow each flagged join to
+                # the worst lane's exact total, recompile, retry the chunk
+                stats.n_retries += 1
+                totals_np = totals_b.cpu().numpy()
+                overflowed = [
+                    bool(flags_np[:, j].any())
+                    for j in range(flags_np.shape[1])
+                ]
+                for j, f in enumerate(overflowed):
+                    ovf_counts[j] += int(f)
+                new_caps = plan_ir.grow_join_caps(
+                    entry.join_caps,
+                    [int(totals_np[:, j].max())
+                     for j in range(totals_np.shape[1])],
+                    overflowed,
+                )
+                if max(new_caps) > self.max_capacity:
+                    raise MemoryError(
+                        f"join result exceeds {self.max_capacity}"
+                    )
+                entry = self._compile_entry(shape, new_caps, stats)
+        finally:
+            # the group ledger counts every dispatch and compile, including
+            # those of a chunk that then fell back to the sequential path
+            group.n_dispatches += stats.n_dispatches
+            group.n_compiles += stats.n_compiles
+        # the serving counters only describe *successful* stacked service,
+        # so queries_per_dispatch can never be skewed by a failed chunk
+        group.widths = group.widths + (width,)
+        self.stacked_dispatches += stats.n_dispatches
+        self.batch_width_hist[width] = (
+            self.batch_width_hist.get(width, 0) + stats.n_dispatches
+        )
+        self.stacked_queries += n
+        caps = entry.compiled.plan.join_caps
+        stats.peak_join_bucket = max(caps) if caps else 0
+        stats.peak_capacity = entry.compiled.plan.max_capacity()
+        stats.join_caps = tuple(caps)
+        stats.join_overflows = tuple(ovf_counts)
+        self._emit_chunk_results(
+            rel_b, chunk, ctxs, prepared, out, stats, defer,
+            totals_b.cpu().numpy(), traces=traces, events=events,
+        )
+
+    def _emit_chunk_results(
+        self,
+        rel_b: Relation,
+        chunk: list[int],
+        ctxs: list["_BatchCtx | None"],
+        prepared: list[PreparedQuery],
+        out: list,
+        stats: ExecStats,
+        defer: bool,
+        lane_totals: np.ndarray,
+        traces: "list | None" = None,
+        events: "list | None" = None,
+    ) -> None:
+        """Unstack a chunk's result: ONE device→host transfer shared by
+        every lane (lazy — the first decode consumer pays it), then
+        per-lane row decode under each query's own variable names, either
+        inline or left pending for the serving decode pool. `lane_totals`
+        holds each lane's exact join totals, (width, n_joins)."""
+        fetch = _SharedFetch(rel_b)
+        schema = rel_b.schema
+        if events:
+            self._dispatch_seq += 1
+        for k, i in enumerate(chunk):
+            names = tuple(ctxs[i].inverse[v] for v in schema)
+            st = dataclasses.replace(stats)
+            st.join_totals = tuple(int(x) for x in lane_totals[k])
+            # the chunk's dispatch wall is shared: attribute an equal share
+            # to each lane so the engine-level device_time_s stays equal to
+            # the sum over per-run ExecStats
+            st.device_time_s = stats.device_time_s / len(chunk)
+            trace = traces[i] if traces is not None else None
+            if trace is not None and events:
+                for name, t0, t1 in events:
+                    trace.add_span(
+                        name, t0, t1,
+                        dispatch_id=self._dispatch_seq,
+                        width=stats.batch_width, stacked=True, lane=k,
+                    )
+            pending = PendingDecode(
+                self, prepared[i], names, names, fetch, k, st, trace,
+            )
+            out[i] = pending if defer else pending.resolve()
 
     # -- planning ----------------------------------------------------------
     def _lower_expr(
@@ -971,7 +1596,9 @@ class QueryEngine:
         self.plan_cache.misses += 1
         warm_caps = self._warm_caps.get(shape)
         if warm_caps is not None and len(warm_caps) == shape.n_joins():
-            entry = self._compile_entry(shape, warm_caps, stats, trace=trace)
+            entry = self._compile_entry(
+                shape, warm_caps, stats, trace=trace, precompile=True
+            )
             return self._dispatch_entry(
                 shape, entry, canon_scans, *self._device_consts(prog),
                 stats, trace,
@@ -998,7 +1625,9 @@ class QueryEngine:
         join_caps = tuple(plan_ir.bucket_capacity(t) for t in totals)
         stats.join_totals = tuple(totals)
         stats.join_caps = join_caps
-        self._compile_entry(shape, join_caps, stats, trace=trace)
+        self._compile_entry(
+            shape, join_caps, stats, trace=trace, precompile=True
+        )
         return rel
 
     def _compiled_warm(
@@ -1076,12 +1705,22 @@ class QueryEngine:
         join_caps: tuple[int, ...],
         stats: ExecStats,
         trace=None,
+        precompile: bool = False,
     ) -> PlanCacheEntry:
+        """Build the program for (shape, join_caps) and cache it. The cold
+        paths pass `precompile` to build the stacked layouts a previous
+        process persisted too; a regrow does not (the next regrow would
+        discard them)."""
         t_compile = time.perf_counter()
         compiled = ex.compile_plan(plan_ir.build_plan(shape, join_caps))
         stats.n_compiles += 1
         self.plan_cache.compiles += 1
-        entry = PlanCacheEntry(shape, join_caps, compiled)
+        entry = PlanCacheEntry(
+            shape, join_caps, compiled,
+            warm_layouts=self._warm_layouts.get(shape, ()),
+        )
+        if precompile:
+            self._precompile_batched(entry, stats)
         self.plan_cache.put(shape, entry)
         if trace is not None:
             trace.add_span(
@@ -1089,6 +1728,27 @@ class QueryEngine:
                 n_joins=len(join_caps),
             )
         return entry
+
+    def _precompile_batched(
+        self, entry: PlanCacheEntry, stats: ExecStats
+    ) -> None:
+        """Build the stacked programs for the (width, scan-layout)
+        signatures a previous process persisted (save_cache /
+        warmup_path), so a restarted server's first micro-batch dispatches
+        warm."""
+        width_cap = plan_ir.floor_pow2(MAX_BATCH_WIDTH)
+        for w, axes in entry.warm_layouts:
+            if (
+                (w, axes) in entry.batched
+                or not 2 <= w <= width_cap
+                or len(axes) != len(entry.shape.scan_schemas)
+            ):
+                continue
+            entry.batched[(w, axes)] = ex.compile_plan_batched(
+                entry.compiled.plan, w, axes
+            )
+            stats.n_compiles += 1
+            self.plan_cache.compiles += 1
 
     # -- explain -----------------------------------------------------------
     def _explain_program(

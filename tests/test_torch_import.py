@@ -25,7 +25,18 @@ def _port_modules() -> list[str]:
 
 def test_port_imports_without_jax_or_reference():
     mods = _port_modules()
-    assert "repro_torch.sparql.engine" in mods
+    for m in (
+        "repro_torch.sparql.engine",
+        "repro_torch.kernels.bitonic_sort.ops",
+        "repro_torch.kernels.segment_reduce.ops",
+        "repro_torch.serve.batcher",
+        "repro_torch.serve.decode",
+        "repro_torch.serve.sparql_server",
+        "repro_torch.launch.serve",
+        "repro_torch.obs.metrics",
+        "repro_torch.obs.trace",
+    ):
+        assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -42,6 +53,18 @@ def test_port_imports_without_jax_or_reference():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_server_launcher_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    try:
+        serve.serve_sparql(scale=1, n_queries=1)
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e)
+    else:
+        raise AssertionError("the server launcher ran without a card")
 
 
 def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
