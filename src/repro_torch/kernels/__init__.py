@@ -38,8 +38,12 @@ NVCC_FLAGS = (
 # Launches per kernel, counted by each binding where it launches (and
 # nowhere else): a run reads them to show which kernels it went through.
 # One count is one call of the kernel's C launcher, which may issue more
-# than one device launch (bitonic_sort issues one per global-memory pass).
+# than one device launch.
 LAUNCHES: collections.Counter = collections.Counter()
+# Device launches made by those calls, as the launchers of bitonic_sort
+# (1 within one tile, 12 above) and segment_reduce (1 or 2) report them;
+# the other launchers make one device launch per call.
+DEVICE_LAUNCHES: collections.Counter = collections.Counter()
 
 _libs: dict[tuple[str, str], ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -1,6 +1,7 @@
 """Public pair-sort API: the CUDA kernel for CUDA tensors, the plain
-version for CPU tensors. Every length takes the kernel on the card; there
-is no route to another sort by size."""
+version for CPU tensors. Every length takes the kernel on the card (its
+launcher picks the one-block network or the radix passes by length); there
+is no route to another sort."""
 from __future__ import annotations
 
 import torch
@@ -12,9 +13,10 @@ from repro_torch.kernels.bitonic_sort import ref as _ref
 def sort_pairs(keys: torch.Tensor, vals: torch.Tensor):
     """Sort int32 (keys, vals) by key ascending; any length.
 
-    NOTE: the bitonic network is not stable — equal keys may permute their
-    payloads on the card (the plain version happens to be stable; callers
-    must not rely on either order among equal keys)."""
+    NOTE: not stable — on the card, up to one tile (8192 pairs) a bitonic
+    network sorts in one block and equal keys may permute their payloads;
+    above it a radix sort keeps their order, as the plain version does.
+    Callers must not rely on any order among equal keys."""
     if keys.device.type == "cpu":
         return _ref.sort_pairs(keys, vals)
     return _k.sort_pairs_cuda(keys.contiguous(), vals.contiguous())

@@ -18,7 +18,15 @@ _ENTRY = {torch.float32: "segment_sum_f32_launch",
 @functools.cache  # one lookup and argtypes setup per launcher
 def _launcher(entry: str):
     fn = getattr(kernels.load(NAME, "segment_sum"), entry)
-    fn.argtypes = [_P, _P, _I, _I, _I, _P, _P]
+    fn.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P, _P]
+    fn.restype = _I
+    return fn
+
+
+@functools.cache
+def _chunks():
+    fn = kernels.load(NAME, "segment_sum").segment_sum_chunks
+    fn.argtypes = [_I, _I, _I]
     fn.restype = _I
     return fn
 
@@ -26,7 +34,8 @@ def _launcher(entry: str):
 def sorted_segment_sum_cuda(data: torch.Tensor, ids: torch.Tensor,
                             num_segments: int) -> torch.Tensor:
     """(num_segments, d) sums of `data`'s rows by sorted id, on the card, in
-    the data's type (float32 or bfloat16), accumulated in float32."""
+    the data's type (float32 or bfloat16), accumulated in float32 in an
+    order fixed by the shapes (two calls give the same bits)."""
     if not data.is_cuda or data.dtype not in _ENTRY or data.dim() != 2:
         raise ValueError(
             "data: expected a 2-D float32 or bfloat16 CUDA tensor, got "
@@ -43,12 +52,18 @@ def sorted_segment_sum_cuda(data: torch.Tensor, ids: torch.Tensor,
     out = torch.empty((num_segments, d), dtype=data.dtype, device=data.device)
     if num_segments == 0:
         return out
+    # float32 partials of the segments that cross a chunk edge
+    carry = torch.empty((_chunks()(n, d, data.element_size()), 2, d),
+                        dtype=torch.float32, device=data.device)
+    device_launches = ctypes.c_int(0)
     dev = data.device
     with torch.cuda.device(dev):
         err = _launcher(_ENTRY[data.dtype])(
             data.data_ptr(), ids.data_ptr(), n, d, num_segments,
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            out.data_ptr(), carry.data_ptr(), ctypes.addressof(device_launches),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     kernels.check_launch(NAME, err)
     kernels.LAUNCHES[NAME] += 1
+    kernels.DEVICE_LAUNCHES[NAME] += device_launches.value
     return out

@@ -168,8 +168,32 @@ def _pairs(k, v):
     return torch.sort(k.long() * 2**32 + (v.long() & 0xFFFFFFFF)).values
 
 
+def _sort_and_check(keys, vals):
+    """One sort_pairs call against the plain version: keys equal, (key,
+    payload) multisets equal, and above one tile (the stable radix path)
+    payloads equal; one launcher call of 1 device launch within the tile,
+    12 above."""
+    n = keys.shape[0]
+    before = kernels.LAUNCHES["bitonic_sort"]
+    before_dev = kernels.DEVICE_LAUNCHES["bitonic_sort"]
+    sk, sv = sort_ops.sort_pairs(keys, vals)
+    assert kernels.LAUNCHES["bitonic_sort"] == before + 1
+    stable = sort_kernel.stable_at(n)
+    assert stable == (n > 8192)  # one block sorts up to 8192 pairs
+    assert kernels.DEVICE_LAUNCHES["bitonic_sort"] - before_dev == (
+        12 if stable else 1)
+    rk, rv = sort_ref.sort_pairs(keys, vals)
+    torch.cuda.synchronize()
+    assert torch.equal(sk, rk)
+    assert torch.equal(_pairs(sk, sv), _pairs(rk, rv))
+    if stable:
+        assert torch.equal(sv, rv)
+    return rk
+
+
 @pytest.mark.parametrize(
-    "n", [1, 2, 3, 17, 2047, 2048, 2049, 4096, 5000, (1 << 16) + 7, 1 << 19]
+    "n", [1, 2, 3, 17, 2047, 2048, 2049, 4096, 5000, (1 << 16) + 7, 1 << 19,
+          8191, 8192, 8193, 16384, 16385, 8192 + 4096, (1 << 20) + 5]
 )
 def test_bitonic_sort_kernel_equals_plain(cuda, n):
     gen = torch.Generator().manual_seed(n)
@@ -178,22 +202,36 @@ def test_bitonic_sort_kernel_equals_plain(cuda, n):
     keys[torch.rand(n, generator=gen) < 0.05] = 2**31 - 1
     vals = torch.randint(-(2**31), 2**31 - 1, (n,), generator=gen, dtype=torch.int32)
     keys, vals = keys.to(cuda), vals.to(cuda)
-    before = kernels.LAUNCHES["bitonic_sort"]
-    sk, sv = sort_ops.sort_pairs(keys, vals)
-    assert kernels.LAUNCHES["bitonic_sort"] == before + 1
-    rk, rv = sort_ref.sort_pairs(keys, vals)
-    torch.cuda.synchronize()
-    assert torch.equal(sk, rk)
-    assert torch.equal(_pairs(sk, sv), _pairs(rk, rv))
+    rk = _sort_and_check(keys, vals)
     order = sort_ops.argsort_i32(keys)
     assert torch.equal(keys[order.long()], rk)
     assert torch.equal(torch.sort(order).values,
                        torch.arange(n, dtype=torch.int32, device=cuda))
 
 
+@pytest.mark.parametrize("n", [8192, 8193, 70001])
+@pytest.mark.parametrize(
+    "pattern", ["equal", "int32_min", "int32_max", "sorted", "reversed"]
+)
+def test_bitonic_sort_special_inputs(cuda, n, pattern):
+    """All-equal keys, all INT32_MIN / INT32_MAX (each keeps its own
+    payload), sorted and reverse-sorted input, within and above one tile."""
+    keys = {
+        "equal": torch.full((n,), 7, dtype=torch.int32),
+        "int32_min": torch.full((n,), -(2**31), dtype=torch.int32),
+        "int32_max": torch.full((n,), 2**31 - 1, dtype=torch.int32),
+        "sorted": torch.arange(n, dtype=torch.int32) * 3 - n,
+        "reversed": torch.arange(n, 0, -1, dtype=torch.int32) * 1000,
+    }[pattern].to(cuda)
+    vals = torch.randperm(n, generator=torch.Generator().manual_seed(n),
+                          dtype=torch.int64).to(torch.int32).to(cuda)
+    _sort_and_check(keys, vals)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d,s", [(10, 8, 4), (2048, 64, 128), (1000, 130, 33),
-                                   (20000, 16, 5000), (0, 4, 3)])
+                                   (20000, 16, 5000), (0, 4, 3), (5000, 1, 40),
+                                   (5000, 3, 40), (5000, 130, 40)])
 def test_segment_sum_kernel_equals_plain(cuda, n, d, s, dtype):
     gen = torch.Generator().manual_seed(n + d + s)
     ids = torch.sort(torch.randint(-3, s + 3, (n,), generator=gen,
@@ -209,6 +247,64 @@ def test_segment_sum_kernel_equals_plain(cuda, n, d, s, dtype):
         want, tol = seg_ref.sorted_segment_sum(data, ids, s), (5e-2, 0.3)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want, rtol=tol[0], atol=tol[1])
+
+
+def _bits(x):
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["one_segment", "skew", "gaps"])
+def test_segment_sum_long_segments_and_gaps(cuda, case, dtype):
+    """One segment spanning many chunks (alone, and holding half of a
+    skewed input), and empty segments below the first id, between ids and
+    above the last: within the tolerances of the exact (float64) sum for
+    float32, of the float32 sum of the same bfloat16 inputs for bfloat16
+    (over 2^17 rows the inputs' own rounding from float32 exceeds the
+    bounds); two calls equal bit for bit."""
+    gen = torch.Generator().manual_seed(11)
+    if case == "one_segment":
+        n, d, s = 300_000, 64, 10
+        ids = torch.full((n,), 3, dtype=torch.int32)
+    elif case == "skew":
+        n, d, s = 1 << 18, 128, 512
+        ids = torch.cat([torch.randint(0, s, (n // 2,), generator=gen,
+                                       dtype=torch.int32),
+                         torch.full((n // 2,), 7, dtype=torch.int32)])
+    else:  # every 30th id from 10 up: gaps at both ends and between
+        n, d, s = 30_000, 32, 1000
+        ids = torch.randint(0, 30, (n,), generator=gen, dtype=torch.int32) * 30 + 10
+    ids = torch.sort(ids).values.to(cuda)
+    data = torch.randn(n, d, generator=gen).to(cuda)
+    data = data.to(dtype)
+    got = seg_ops.sorted_segment_sum(data, ids, s)
+    again = seg_ops.sorted_segment_sum(data, ids, s)
+    if dtype == torch.float32:
+        want, tol = seg_ref.sorted_segment_sum(data.double(), ids, s), (1e-5, 1e-4)
+    else:
+        want = seg_ref.sorted_segment_sum(data.float(), ids, s).double()
+        tol = (5e-2, 0.3)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(again))
+    torch.testing.assert_close(got.double(), want, rtol=tol[0], atol=tol[1])
+    if case == "gaps":
+        present = torch.zeros(s, dtype=torch.bool, device=cuda)
+        present[ids.long()] = True
+        assert not got[~present].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,s", [(2048, 64, 128), (100_000, 130, 300),
+                                   (70_000, 1, 50)])
+def test_segment_sum_two_calls_are_bit_equal(cuda, n, d, s, dtype):
+    gen = torch.Generator().manual_seed(n + d)
+    ids = torch.sort(torch.randint(-2, s + 2, (n,), generator=gen,
+                                   dtype=torch.int32)).values.to(cuda)
+    data = torch.randn(n, d, generator=gen).to(cuda).to(dtype)
+    before = kernels.DEVICE_LAUNCHES["segment_reduce"]
+    first = seg_ops.sorted_segment_sum(data, ids, s)
+    assert kernels.DEVICE_LAUNCHES["segment_reduce"] - before == 2
+    assert torch.equal(_bits(first), _bits(seg_ops.sorted_segment_sum(data, ids, s)))
 
 
 def test_new_bindings_refuse_what_the_kernels_do_not_take(cuda):
