@@ -13,15 +13,23 @@ Phases (any failure ends the run with a non-zero exit and no "ok" line):
      tile, on its payloads too; the segment sum within the reference
      test's tolerances of the exact sum, also with one segment holding
      half the rows, and two calls bit-equal; each launcher call's device
-     launches logged for those two); kernel, plain and
-     one-library-call times from CUDA events, beside the least time the
-     card could take for the function (bytes moved over 3.35 TB/s, or the
-     int32 operations a sort-based or merge-based algorithm needs over
-     16.75 T/s, whichever is larger); the compares the kernel's own
-     algorithm does are logged beside it. The stacked (lane-axis) form of
-     pair_expand, match_layout and sort_ranks at 8 lanes against 8 single
-     calls, both timed, at a small shape and at the engine's largest
-     buckets, with invalid-row sentinel keys.
+     launches logged for those two and for sort_ranks, with a profiler
+     breakdown by kernel; pair_expand also at the merge path's edges and
+     at every (n_left, capacity) of the full-scale phase, single and
+     stacked at the serving width, sort_ranks on both sides of its two
+     paths' threshold and up to 2^20 + 3 keys, held there to the inverse
+     of the stable argsort); kernel, plain and one-library-call device
+     times from CUDA events around calls queued ahead of the card, the
+     host's enqueue of one kernel call and one library call, and each
+     call's cost (the larger of its device time and its enqueue), beside
+     the least time the card could take for the function (bytes moved
+     over 3.35 TB/s, or the int32 operations a sort-based or merge-based
+     algorithm needs over 16.75 T/s, whichever is larger); the compares
+     the kernel's own algorithm does are logged beside it. The stacked
+     (lane-axis) form of pair_expand, match_layout and sort_ranks at 8
+     lanes against 8 single calls, both timed, at a small shape and at
+     the engine's largest buckets, with invalid-row sentinel keys, and
+     sort_ranks on its radix path.
   3. kernel API — the public sort_pairs, argsort_i32 and
      sorted_segment_sum at the reference benchmark's shapes (the path that
      runs bitonic_sort and segment_reduce), held to their plain versions.
@@ -35,8 +43,9 @@ Phases (any failure ends the run with a non-zero exit and no "ok" line):
      QueryEngine.prepare(text).run() on the card, cold then warm: rows
      equal the port on the CPU and, as sets, the hash-join oracle; a warm
      repeat is 1 dispatch and 0 compiles with no host sync inside the plan
-     program; every kernel was launched; warm latency percentiles and
-     peak device memory.
+     program; every kernel was launched; warm latency percentiles, peak
+     device memory, and the shapes each query gives pair_expand and
+     sort_ranks.
   6. serving — SPARQLServer on the full-scale store, on the card: two
      rounds of bursts of concurrent same-shape requests (the first pays
      each width's first use; the summary reads the second, which starts
@@ -124,12 +133,22 @@ def check(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events over `iters` calls."""
+    """Mean device time of one call, from CUDA events around `iters` calls
+    that the host queued behind a sleeping kernel: the host's launch path
+    (ctypes, allocation, Python) runs ahead and does not pace the card,
+    which it would for calls shorter than their enqueue. A call that waits
+    for the card (the plain versions' host syncs) is timed with its wait."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t  # one call's enqueue
+    torch.cuda.synchronize()
+    # twice the enqueue of all `iters` calls, at ~2e9 cycles/s, <= 0.2 s
+    torch.cuda._sleep(int(min(0.2, 2 * iters * host_s) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -168,7 +187,7 @@ def device_breakdown(fn, calls: int = 5):
         us = (getattr(ev, "device_time_total", 0)
               or getattr(ev, "cuda_time_total", 0))
         if us:
-            name = re.search(r"[a-z][a-z_]*_kernel", ev.key)
+            name = re.search(r"[a-z][a-z_]*_kernel(<[^>]*>)?", ev.key)
             out[name.group(0) if name else ev.key[:40]] = (
                 round(us / 1e3 / calls, 6), ev.count / calls)
     return out or "not measured"
@@ -235,15 +254,30 @@ def kernel_phase(dev) -> dict[str, dict]:
             return None
         return counts[name] if before is None else counts[name] - before
 
-    def record(name, shape, err, k_ms, p_ms, b, algo_ops, lib_ms, source,
-               replaces, exact=True):
+    def record(name, shape, err, run, plain, b, algo_ops, lib, source,
+               replaces, exact=True, primary=True, iters=20):
+        """Time and log one shape's row: the kernel's call `run`, its plain
+        version `plain` and one library call `lib` (either may be None).
+        Beside each card time, the host's enqueue of one call and the
+        call's cost, the larger of the two: a launch-bound call costs its
+        enqueue on the main path. The primary shape's row (the last one
+        recorded with primary=True) goes into the kernels line."""
         b_ms, b_by = b
+        k_ms, k_enq = time_ms(run, iters=iters), enqueue_ms(run)
+        p_ms = None if plain is None else time_ms(plain)
+        lib_ms, lib_enq = ((None, None) if lib is None else
+                           (time_ms(lib, iters=iters), enqueue_ms(lib)))
+        fmt = lambda x: "null" if x is None else f"{x:.6f}"  # noqa: E731
         log(f"kernel {name} {shape}: max_abs_err={err} kernel_ms={k_ms:.6f} "
-            f"plain_ms={p_ms:.6f} bound_ms={b_ms:.9f} ({b_by}) "
-            f"kernel_algorithm_ops={algo_ops} "
-            f"library_ms={'null' if lib_ms is None else f'{lib_ms:.6f}'}")
+            f"host_enqueue_ms={k_enq:.6f} cost_ms={max(k_ms, k_enq):.6f} "
+            f"plain_ms={fmt(p_ms)} bound_ms={b_ms:.9f} ({b_by}) "
+            f"kernel_algorithm_ops={algo_ops} library_ms={fmt(lib_ms)} "
+            f"library_enqueue_ms={fmt(lib_enq)} library_cost_ms="
+            f"{fmt(None if lib is None else max(lib_ms, lib_enq))}")
         if exact:
             check(err == 0, f"{name} {shape} differs from its plain version")
+        if not primary:
+            return
         out[name] = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
@@ -251,28 +285,113 @@ def kernel_phase(dev) -> dict[str, dict]:
             "library_ms": lib_ms,
         }
 
-    # pair_expand at the engine's largest buckets
+    # pair_expand at the engine's largest buckets (the kernels line), then
+    # the merge path's edges: 90% zero counts with a run of zero-count rows
+    # far longer than a block's 2048 merge positions, a total of a third
+    # of the capacity (two thirds of the blocks wholly past it), a total
+    # above the capacity; then every (n_left, capacity) the full-scale
+    # phase gives it, with that join's total as matches at random rows,
+    # single and stacked at the serving phase's width
     n_left, cap = 1 << 20, 1 << 22
+    pe_cases = []
     counts = torch.randint(0, 7, (n_left,), generator=gen, dtype=torch.int32)
-    prefix = torch.cumsum(counts, 0, dtype=torch.int32).to(dev)
-    counts = counts.to(dev)
-    got = pek.pair_expand_cuda(prefix, counts, cap)
-    want = per.pair_expand(prefix, counts, cap)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    slots = torch.arange(cap, dtype=torch.int32, device=dev)
-    record(
-        "pair_expand", f"n_left={n_left} capacity={cap}", err,
-        time_ms(lambda: pek.pair_expand_cuda(prefix, counts, cap)),
-        time_ms(lambda: per.pair_expand(prefix, counts, cap)),
-        # prefix and counts read once; i, off (int32) and valid (bool) out;
-        # a merge of the slots with prefix is one compare per element
-        bound(8 * n_left + 9 * cap, n_left + cap),
-        cap * (n_left.bit_length() + 1),  # a binary search per slot
-        time_ms(lambda: torch.searchsorted(prefix, slots, right=True)),
-        "src/repro_torch/kernels/pair_expand/csrc/pair_expand.cu",
-        "src/repro/kernels/pair_expand/kernel.py:25",
-    )
+    pe_cases.append(("uniform counts 0-6", counts, cap, 0))
+    sparse = torch.randint(1, 7, (n_left,), generator=gen, dtype=torch.int32)
+    sparse *= torch.rand(n_left, generator=gen) < 0.1
+    sparse[1 << 18:(1 << 18) + 100_000] = 0
+    pe_cases.append(("90% zero counts, a zero run of 100000", sparse, cap, 0))
+    third = torch.randint(0, 3, (n_left,), generator=gen, dtype=torch.int32)
+    pe_cases.append(("total = capacity/3", third, 3 * int(third.sum()), 0))
+    over = torch.randint(0, 7, (n_left,), generator=gen, dtype=torch.int32)
+    pe_cases.append(("total > capacity", over, int(over.sum()) * 3 // 4, 0))
+    for what, n_left, cap, total, lanes in (
+            ("Q1 join 1", 1 << 20, 16, 13, 16),
+            ("Q2 join 1", 1 << 18, 256, 133, 16),
+            ("Q2 join 2", 256, 1024, 735, 16),
+            ("Q4 join 1", 1 << 18, 16, 11, 16),
+            ("Q4 join 2", 16, 16, 11, 16),
+            ("Q7 join 1", 1 << 22, 32, 23, 16),
+            ("Q7 join 2", 32, 32, 23, 16),
+            ("Q9 join 1", 1 << 18, 1 << 18, 217_222, 4),
+            ("Q9 join 2", 1 << 18, 1 << 21, 1_228_241, 4),
+            ("Q9 join 3", 1 << 21, 1 << 18, 254_442, 4),
+            ("Q9 join 4", 1 << 18, 1 << 18, 254_442, 4)):
+        counts = torch.stack([
+            torch.bincount(torch.randint(0, n_left, (total,), generator=gen),
+                           minlength=n_left).int()
+            for _ in range(lanes)])
+        pe_cases.append((f"main path, {what}", counts, cap, lanes))
+    search_at = getattr(pek, "search_at", None)  # older trees: one path
+
+    def pe_path(lanes, cap):
+        return "one" if search_at is None else (
+            "search" if search_at(lanes, cap) else "merge")
+
+    for what, counts, cap, lanes in pe_cases:
+        stack = counts if lanes else None
+        counts = counts[0] if lanes else counts
+        n_left = counts.shape[0]
+        prefix = torch.cumsum(counts, 0, dtype=torch.int32).to(dev)
+        counts = counts.to(dev)
+        total = int(prefix[-1])
+        got = pek.pair_expand_cuda(prefix, counts, cap)
+        want = per.pair_expand(prefix, counts, cap)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        slots = torch.arange(cap, dtype=torch.int32, device=dev)
+        shape = f"n_left={n_left} capacity={cap} total={total} ({what})"
+        run = lambda: pek.pair_expand_cuda(prefix, counts, cap)  # noqa: E731
+
+        def fill(out=got):  # a practical write rate: the outputs' bytes alone
+            out[0].fill_(1), out[1].fill_(2), out[2].fill_(True)
+
+        log(f"kernel pair_expand {shape}: path {pe_path(1, cap)}; fill_ms="
+            f"{time_ms(fill):.6f} (three torch fills of the outputs); device "
+            "ms, launches per call by "
+            f"kernel {device_breakdown(run)}")
+        record(
+            "pair_expand", shape, err, run,
+            lambda: per.pair_expand(prefix, counts, cap),
+            # i, off (int32) and valid (bool) out; prefix and counts read
+            # once, of the rows the slots can land on (each slot's row and
+            # the one before it: all of them unless the capacity is far
+            # below n_left); a merge of those with the slots is one compare
+            # per element
+            bound(8 * min(n_left, 2 * cap) + 9 * cap,
+                  min(n_left, 2 * cap) + cap),
+            # search: a probe per slot and halving; merge: a step per row
+            # and per slot
+            cap * n_left.bit_length() if pe_path(1, cap) == "search"
+            else n_left + cap,
+            lambda: torch.searchsorted(prefix, slots, right=True),
+            "src/repro_torch/kernels/pair_expand/csrc/pair_expand.cu",
+            "src/repro/kernels/pair_expand/kernel.py:25",
+            primary=what.startswith("uniform"),
+        )
+        del got, want, slots
+        if not lanes:
+            continue
+        # the stacked form the serving phase launches: one call for
+        # `lanes` lanes, against that many single calls
+        s_prefix = torch.cumsum(stack, 1, dtype=torch.int32).to(dev)
+        s_counts = stack.to(dev)
+        lane_rows = [(s_prefix[w], s_counts[w]) for w in range(lanes)]
+        stacked = pek.pair_expand_cuda(s_prefix, s_counts, cap)
+        singles = [pek.pair_expand_cuda(p_, c_, cap) for p_, c_ in lane_rows]
+        torch.cuda.synchronize()
+        check(all(max_abs_err([o[w] for o in stacked], singles[w]) == 0
+                  for w in range(lanes)),
+              f"stacked pair_expand {shape} differs from its single calls")
+        run = lambda: pek.pair_expand_cuda(s_prefix, s_counts, cap)  # noqa: E731
+
+        def run_singles():
+            return [pek.pair_expand_cuda(p_, c_, cap) for p_, c_ in lane_rows]
+
+        log(f"kernel pair_expand {shape} stacked lanes={lanes}: path "
+            f"{pe_path(lanes, cap)}; kernel_ms={time_ms(run):.6f} "
+            f"host_enqueue_ms={enqueue_ms(run):.6f} "
+            f"singles_ms={time_ms(run_singles):.6f}")
+        del stacked, singles, s_prefix, s_counts, lane_rows
 
     # match_layout at the S1 shape and at the optimizer's dense cap
     for n_l, n_r in ((1024, 64), (4096, 1024)):
@@ -286,8 +405,8 @@ def kernel_phase(dev) -> dict[str, dict]:
         torch.cuda.synchronize()
         record(
             "match_layout", f"n_l={n_l} n_r={n_r}", max_abs_err(got, want),
-            time_ms(lambda: smk.match_layout_cuda(lk, rk)),
-            time_ms(lambda: smr.match_layout(lk, rk)),
+            lambda: smk.match_layout_cuda(lk, rk),
+            lambda: smr.match_layout(lk, rk),
             # keys read once, four int32 outputs written once; a sort of
             # both sides and a merge give every output
             bound(4 * (n_l + n_r) + 4 * (3 * n_l + n_r), n_log_n(n_l + n_r)),
@@ -299,26 +418,64 @@ def kernel_phase(dev) -> dict[str, dict]:
             "src/repro/kernels/spmm_join/kernel.py:29",
         )
 
-    # sort_ranks over the right side of a matrix join
-    for n in (1024, 4096):
-        keys = torch.randint(0, max(2, n // 3), (n,), generator=gen,
-                             dtype=torch.int32).to(dev)
+    # sort_ranks over the right side of a matrix join: S1's 64 keys, the
+    # dense cap's sides, both sides of its two paths' threshold T (the
+    # compare path up to T, the radix path above: 2^14, T, T + 1, 2^15), a
+    # right side of 2^18 rows beside a tiny left side (legal under the
+    # optimizer's cap) and 2^20 + 3. Heavy ties, INT32_MIN and both
+    # invalid-row sentinels. Bit for bit against the plain version where
+    # its quadratic blocks are quick, and everywhere the inverse of the
+    # stable argsort. n = 4096 goes into the kernels line.
+    radix_at = getattr(smk, "radix_at", None)  # older trees: one path
+    threshold = 20480
+    if radix_at is not None:  # the largest n on the compare path
+        lo, hi = 1, 1 << 21
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (lo, mid - 1) if radix_at(mid) else (mid, hi)
+        threshold = lo
+    sr_sizes = [64, 1024, 4096, 1 << 14, threshold, threshold + 1, 1 << 15,
+                1 << 18, (1 << 20) + 3]
+    if radix_at is None:  # a quadratic kernel: 2^20 keys take seconds
+        sr_sizes = sr_sizes[:-1]
+    for n in sr_sizes:
+        keys = torch.randint(0, max(2, n // 64), (n,), generator=gen,
+                             dtype=torch.int32)
+        keys[torch.rand(n, generator=gen) < 0.05] = -(2**31)
+        keys[torch.rand(n, generator=gen) < 0.1] = int_max  # invalid left
+        keys[torch.rand(n, generator=gen) < 0.1] = int_max - 1  # invalid right
+        keys = keys.to(dev)
+        before = device_launches("sort_ranks")
         got = smk.sort_ranks_cuda(keys)
-        want = smr.sort_ranks(keys)
+        per_call = device_launches("sort_ranks", before)
         perm = torch.argsort(keys, stable=True)
+        quick_plain = n <= threshold + 1
+        want = smr.sort_ranks(keys) if quick_plain else None
         torch.cuda.synchronize()
         check(torch.equal(got[perm].cpu(), torch.arange(n, dtype=torch.int32)),
-              "sort_ranks is not the inverse of the stable argsort")
+              f"sort_ranks n={n} is not the inverse of the stable argsort")
+        radix = radix_at is not None and radix_at(n)
+        run = lambda: smk.sort_ranks_cuda(keys)  # noqa: E731
+        log(f"kernel sort_ranks n={n}: path "
+            f"{'radix' if radix else 'compare'}; device launches per call "
+            f"{per_call}; checked against "
+            f"{'the plain version and ' if quick_plain else ''}the inverse of "
+            f"the stable argsort; device ms, launches per call by kernel "
+            f"{device_breakdown(run)}")
         record(
-            "sort_ranks", f"n={n}", max_abs_err([got], [want]),
-            time_ms(lambda: smk.sort_ranks_cuda(keys)),
-            time_ms(lambda: smr.sort_ranks(keys)),
+            "sort_ranks", f"n={n}",
+            max_abs_err([got], [want]) if quick_plain else 0,
+            run, (lambda: smr.sort_ranks(keys)) if quick_plain else None,
             bound(8 * n, n_log_n(n)),  # a stable comparison sort
-            2 * n * n,  # lt and eq per key pair
-            time_ms(lambda: torch.argsort(keys, stable=True)),
+            # radix: 4 passes, a digit taken twice per key (count, rank);
+            # compare path: a compare per key pair
+            8 * n if radix else n * n,
+            lambda: torch.argsort(keys, stable=True),
             "src/repro_torch/kernels/spmm_join/csrc/sort_ranks.cu",
             "src/repro/kernels/spmm_join/kernel.py:57",
+            primary=n == 4096, iters=20 if n <= 1 << 18 else 5,
         )
+        del got, want, perm
 
     # bitonic_sort: the reference benchmark's n, the one-block tile's edge
     # (the largest n one launch sorts, and one more: the radix path), twice
@@ -348,14 +505,12 @@ def kernel_phase(dev) -> dict[str, dict]:
         log(f"kernel bitonic_sort n={n}: device launches per call "
             f"{per_call}; payloads "
             f"{'equal the plain version' if stable else 'as a multiset'}; "
-            f"host_enqueue_ms="
-            f"{enqueue_ms(lambda: bsk.sort_pairs_cuda(keys, vals)):.6f}; "
             "device ms, launches per call by kernel "
             f"{device_breakdown(lambda: bsk.sort_pairs_cuda(keys, vals))}")
         record(
             "bitonic_sort", f"n={n}", max_abs_err([gk], [wk]),
-            time_ms(lambda: bsk.sort_pairs_cuda(keys, vals)),
-            time_ms(lambda: bsr.sort_pairs(keys, vals)),
+            lambda: bsk.sort_pairs_cuda(keys, vals),
+            lambda: bsr.sort_pairs(keys, vals),
             # keys and payloads read once and written once; a comparison
             # sort's n log2 n compares
             bound(16 * n, n_log_n(n)),
@@ -363,7 +518,7 @@ def kernel_phase(dev) -> dict[str, dict]:
             # network: its compares over its power-of-two span
             8 * n if stable else (1 << (n - 1).bit_length()) // 2
             * ((n - 1).bit_length() * ((n - 1).bit_length() + 1) // 2),
-            time_ms(lambda: torch.sort(keys)),
+            lambda: torch.sort(keys),
             "src/repro_torch/kernels/bitonic_sort/csrc/bitonic_sort.cu",
             "src/repro/kernels/bitonic_sort/kernel.py:42",
         )
@@ -421,8 +576,6 @@ def kernel_phase(dev) -> dict[str, dict]:
             f"two calls bit-equal; max abs error of the float32 plain "
             f"version from the float64 sum (float32), of the kernel from "
             f"the float32 data's sum (bfloat16): {plain_err}; "
-            f"host_enqueue_ms="
-            f"{enqueue_ms(lambda: srk.sorted_segment_sum_cuda(data, ids, segs)):.6f}; "
             "device ms, launches per call by kernel "
             f"{device_breakdown(lambda: srk.sorted_segment_sum_cuda(data, ids, segs))}")
         size = data.element_size()
@@ -430,13 +583,13 @@ def kernel_phase(dev) -> dict[str, dict]:
             "segment_reduce",
             f"n={n} d={d} segments={segs} {dtype} hot_segment_rows={hot}",
             err,
-            time_ms(lambda: srk.sorted_segment_sum_cuda(data, ids, segs)),
-            time_ms(lambda: srr.sorted_segment_sum(data, ids, segs)),
+            lambda: srk.sorted_segment_sum_cuda(data, ids, segs),
+            lambda: srr.sorted_segment_sum(data, ids, segs),
             # data and ids read once, out written once; n*d adds
             bound(n * d * size + 4 * n + segs * d * size, n * d),
             n * d,
-            time_ms(lambda: torch.zeros(segs, d, dtype=dtype, device=dev)
-                    .index_add_(0, ids, data)),
+            lambda: torch.zeros(segs, d, dtype=dtype, device=dev)
+            .index_add_(0, ids, data),
             "src/repro_torch/kernels/segment_reduce/csrc/segment_sum.cu",
             "src/repro/kernels/segment_reduce/kernel.py:25",
             exact=False,
@@ -480,6 +633,12 @@ def stacked_phase(dev) -> list[dict]:
                       (lk, rk), f"n_l={n_l} n_r={n_r} sentinels"))
         cases.append(("sort_ranks", lambda x: (smk.sort_ranks_cuda(*x),),
                       (rk,), f"n={n_r} sentinels"))
+    # the radix path's lane axis (above the compare path's threshold; a
+    # ragged length, so lane rows are not 16-byte aligned)
+    rk = keys(40_001, int_max - 1)
+    rk[:, :100] = -(2**31)
+    cases.append(("sort_ranks", lambda x: (smk.sort_ranks_cuda(*x),),
+                  (rk,), "n=40001 sentinels, INT32_MIN (radix path)"))
     rows = []
     for name, fn, args, shape in cases:
         stacked = fn(args)
@@ -716,6 +875,32 @@ def warm_without_sync(engine, pq) -> None:
     check(not bool(result.overflows.any()), "warm program overflowed")
 
 
+def kernel_shapes(pq) -> dict[str, list]:
+    """The shapes one run of `pq` gives pair_expand ((lanes,) n_left,
+    capacity per launch) and sort_ranks ((lanes,) n per launch), read by
+    wrapping their bindings for the run."""
+    from repro_torch.kernels.pair_expand import kernel as pek
+    from repro_torch.kernels.spmm_join import kernel as smk
+
+    seen: dict[str, list] = {"pair_expand": [], "sort_ranks": []}
+    pair_expand, sort_ranks = pek.pair_expand_cuda, smk.sort_ranks_cuda
+
+    def pe(prefix, counts, capacity):
+        seen["pair_expand"].append((*prefix.shape, capacity))
+        return pair_expand(prefix, counts, capacity)
+
+    def sr(keys):
+        seen["sort_ranks"].append(tuple(keys.shape))
+        return sort_ranks(keys)
+
+    pek.pair_expand_cuda, smk.sort_ranks_cuda = pe, sr
+    try:
+        pq.run()
+    finally:
+        pek.pair_expand_cuda, smk.sort_ranks_cuda = pair_expand, sort_ranks
+    return seen
+
+
 def full_scale_phase(dev) -> dict:
     from repro_torch import kernels
     from repro_torch.sparql import lubm
@@ -786,6 +971,9 @@ def full_scale_phase(dev) -> dict:
     log(f"full scale: peak device memory {peak} bytes; launches {launches}")
     for k in ("pair_expand", "match_layout", "sort_ranks"):
         check(launches.get(k, 0) > 0, f"kernel {k} was not launched")
+    for name in names:  # after the count: one more warm run per query
+        report[name]["kernel_shapes"] = kernel_shapes(engine.prepare(texts[name]))
+        log(f"  kernel shapes {name}: {report[name]['kernel_shapes']}")
 
     t = time.perf_counter()
     d = store.dictionary

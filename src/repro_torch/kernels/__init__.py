@@ -9,9 +9,11 @@ Each kernel package has:
 
 Each source is compiled with nvcc into its own shared library under
 `build/kernels/` at the repository root, on first use (`load`), or all at
-once with one nvcc process per source, started together (`build_all`). Library names carry a
-hash of the source, so an edited source is rebuilt and a stale library is
-never loaded. Nothing here runs at import time: this module imports on
+once with one nvcc process per source, started together (`build_all`).
+Headers shared between sources live in `include/` (on nvcc's include
+path). Library names carry a hash of the source and of every header in
+`include/`, so an edited source or header is rebuilt and a stale library
+is never loaded. Nothing here runs at import time: this module imports on
 machines without nvcc or a card.
 """
 from __future__ import annotations
@@ -29,6 +31,7 @@ import threading
 import torch
 
 KERNELS_DIR = pathlib.Path(__file__).resolve().parent
+INCLUDE_DIR = KERNELS_DIR / "include"
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,8 +44,9 @@ NVCC_FLAGS = (
 # than one device launch.
 LAUNCHES: collections.Counter = collections.Counter()
 # Device launches made by those calls, as the launchers of bitonic_sort
-# (1 within one tile, 12 above) and segment_reduce (1 or 2) report them;
-# the other launchers make one device launch per call.
+# (1 within one tile, 12 above), sort_ranks (1 up to its threshold, 12
+# above) and segment_reduce (1 or 2) report them; the launchers of
+# pair_expand and match_layout make one device launch per call.
 DEVICE_LAUNCHES: collections.Counter = collections.Counter()
 
 _libs: dict[tuple[str, str], ctypes.CDLL] = {}
@@ -73,6 +77,9 @@ def _nvcc() -> str:
 
 def library_path(package: str, stem: str) -> pathlib.Path:
     digest = hashlib.sha256(source(package, stem).read_bytes())
+    # the shared headers: an edited one rebuilds every kernel
+    for header in sorted(INCLUDE_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{package}_{stem}-{digest.hexdigest()[:16]}.so"
 
@@ -87,7 +94,8 @@ def _start_build(package: str, stem: str):
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source(package, stem))]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", tmp,
+           str(source(package, stem))]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )

@@ -22,11 +22,26 @@ def _launcher():
     return fn
 
 
+@functools.cache
+def _search_path():
+    fn = kernels.load(NAME, NAME).pair_expand_search_path
+    fn.argtypes = [_I, _I]
+    fn.restype = _I
+    return fn
+
+
+def search_at(lanes: int, capacity: int) -> bool:
+    """Whether the launcher expands `lanes` rows of `capacity` slots on its
+    search path (a thread per slot) rather than its merge path."""
+    return bool(_search_path()(lanes, capacity))
+
+
 def pair_expand_cuda(prefix: torch.Tensor, counts: torch.Tensor, capacity: int):
     """(row, offset-in-group, valid) per output slot, on the card.
 
     `prefix` and `counts` are (n_left,) or stacked (lanes, n_left); the
-    outputs are (capacity,) or (lanes, capacity) to match, in one launch."""
+    outputs are (capacity,) or (lanes, capacity) to match, in one launch
+    (the search path up to 2^18 slots in all, the merge path above)."""
     kernels.check_int32(prefix, "prefix")
     kernels.check_int32(counts, "counts")
     if counts.shape != prefix.shape or counts.device != prefix.device:

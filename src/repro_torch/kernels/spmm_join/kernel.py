@@ -1,6 +1,7 @@
 """ctypes bindings of the CUDA layout kernels (csrc/match_layout.cu and
 csrc/sort_ranks.cu). Each takes (n,) inputs or a stack of lanes (lanes, n)
-and launches once either way."""
+and makes one launcher call either way (sort_ranks: one device launch up
+to its threshold, 12 above)."""
 from __future__ import annotations
 
 import ctypes
@@ -59,19 +60,42 @@ def match_layout_cuda(left_keys: torch.Tensor, right_keys: torch.Tensor):
     return counts, first, b, cl
 
 
+@functools.cache
+def _sort_ranks_scratch_ints():
+    fn = kernels.load(PACKAGE, "sort_ranks").sort_ranks_scratch_ints
+    fn.argtypes = [_I, _I]
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+def radix_at(n: int) -> bool:
+    """Whether the launcher ranks n keys on its radix path (n above the
+    compare path's threshold; 12 device launches instead of 1)."""
+    return _sort_ranks_scratch_ints()(1, n) > 0
+
+
 def sort_ranks_cuda(keys: torch.Tensor) -> torch.Tensor:
-    """Each key's stable sorted position, on the card."""
+    """Each key's stable sorted position, on the card. The launcher picks
+    its path by length."""
     lanes, n = _check_keys(keys, "keys")
     dev = keys.device
     rank = torch.empty(keys.shape, dtype=torch.int32, device=dev)
     if lanes == 0:
         return rank
-    fn = _launcher("sort_ranks", (_P, _I, _I, _P, _P))
+    scratch_ints = _sort_ranks_scratch_ints()(lanes, n)
+    # the radix path's two (key, index) pairs and histograms, per lane
+    scratch = (torch.empty(scratch_ints, dtype=torch.int32, device=dev)
+               if scratch_ints else None)
+    device_launches = ctypes.c_int(0)
+    fn = _launcher("sort_ranks", (_P, _I, _I, _P, _P, _P, _P))
     with torch.cuda.device(dev):
         err = fn(
             keys.data_ptr(), lanes, n, rank.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            ctypes.addressof(device_launches),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     kernels.check_launch("sort_ranks", err)
     kernels.LAUNCHES["sort_ranks"] += 1
+    kernels.DEVICE_LAUNCHES["sort_ranks"] += device_launches.value
     return rank

@@ -48,9 +48,12 @@ def _equal(got, want):
 
 
 @pytest.mark.parametrize(
-    "n_left,capacity", [(1, 1), (1, 1000), (2, 7), (700, 1500), (1 << 16, 1 << 18)]
+    "n_left,capacity", [(1, 1), (1, 1000), (2, 7), (700, 1500), (1 << 16, 1 << 18),
+                        (1 << 16, (1 << 18) + 1), (5, 1 << 19)]
 )
 def test_pair_expand_kernel_equals_plain(cuda, n_left, capacity):
+    """Both paths: the search up to 2^18 slots, the merge path above."""
+    assert pe_kernel.search_at(1, capacity) == (capacity <= 1 << 18)
     gen = torch.Generator().manual_seed(n_left)
     counts = torch.randint(0, 5, (n_left,), generator=gen, dtype=torch.int32)
     prefix = torch.cumsum(counts, 0, dtype=torch.int32)
@@ -82,6 +85,138 @@ def test_sort_ranks_kernel_equals_plain(cuda, n):
     got = sm_ops.sort_ranks(keys)
     assert kernels.LAUNCHES["sort_ranks"] == before + 1
     _equal([got], [sm_ref.sort_ranks(keys)])
+
+
+def _expand_inputs(case, gen, path, lanes=None):
+    """(prefix, counts, capacity) of one edge case: for the merge path
+    (its tiles hold 2048 merge positions, rows and slots together) 50,000
+    rows and more than 2^18 slots, for the search path 1,000 rows and at
+    most 2^18 slots over 8 lanes."""
+    rows = 50_000 if path == "merge" else 1_000
+    shape = (lanes, rows) if lanes else (rows,)
+    counts = torch.randint(1, 7, shape, generator=gen, dtype=torch.int32)
+    if case == "zero_runs":  # 90% zero counts, one run of 2/5 of the rows
+        counts *= torch.rand(shape, generator=gen) < 0.1
+        counts[..., rows // 5:3 * rows // 5] = 0
+    elif case == "one_group":  # one row holds 9,000 slots
+        counts.zero_()
+        counts[..., 777] = 9000
+    elif case == "all_zero":
+        counts.zero_()
+    elif case == "few_slots":  # a dozen matches among the left rows
+        counts *= torch.rand(shape, generator=gen) < 12 / rows
+    total = int(counts.sum(-1).max())
+    capacity = {"total_third": 3 * total, "over_capacity": total // 2 + 3,
+                "all_zero": 4099, "few_slots": 64}.get(case, total + 5)
+    if path == "merge":  # past the search path's 2^18 slots
+        capacity = max(capacity, (1 << 18) + 3)
+    prefix = torch.cumsum(counts, -1, dtype=torch.int32)
+    return prefix, counts, capacity
+
+
+_EXPAND_EDGES = ["uniform", "zero_runs", "total_third", "over_capacity",
+                 "one_group", "all_zero", "few_slots"]
+
+
+@pytest.mark.parametrize("path", ["merge", "search"])
+@pytest.mark.parametrize("case", _EXPAND_EDGES)
+def test_pair_expand_edges_equal_plain(cuda, case, path):
+    prefix, counts, capacity = _expand_inputs(
+        case, torch.Generator().manual_seed(len(case)), path)
+    assert pe_kernel.search_at(1, capacity) == (path == "search")
+    prefix, counts = prefix.to(cuda), counts.to(cuda)
+    before = kernels.LAUNCHES["pair_expand"]
+    got = pe_ops.pair_expand(prefix, counts, capacity)
+    assert kernels.LAUNCHES["pair_expand"] == before + 1
+    _equal(got, pe_ref.pair_expand(prefix, counts, capacity))
+
+
+@pytest.mark.parametrize("path", ["merge", "search"])
+@pytest.mark.parametrize("lanes", [1, 3, 8])
+@pytest.mark.parametrize("case", ["zero_runs", "total_third", "over_capacity"])
+def test_stacked_pair_expand_edges_equal_single_calls(cuda, case, lanes, path):
+    """Lane rows of slots that start off a 16-byte boundary (the capacity
+    is odd): the stores' scalar edges. The path is chosen by every lane's
+    slots together, so each lane also equals its single call."""
+    prefix, counts, capacity = _expand_inputs(
+        case, torch.Generator().manual_seed(lanes), path, lanes)
+    capacity |= 1
+    assert pe_kernel.search_at(lanes, capacity) == (path == "search")
+    prefix, counts = prefix.to(cuda), counts.to(cuda)
+    got = pe_kernel.pair_expand_cuda(prefix, counts, capacity)
+    for w in range(lanes):
+        want = pe_ref.pair_expand(prefix[w], counts[w], capacity)
+        _equal([g[w] for g in got], want)
+        _equal(pe_kernel.pair_expand_cuda(prefix[w].contiguous(),
+                                          counts[w].contiguous(), capacity),
+               want)
+
+
+def _rank_keys(kind, shape, gen):
+    if kind == "equal":
+        return torch.full(shape, 5, dtype=torch.int32)
+    k = torch.randint(-3, 3, shape, generator=gen, dtype=torch.int32)
+    k[torch.rand(shape, generator=gen) < 0.2] = -(2**31)
+    if kind == "sentinels":
+        k[torch.rand(shape, generator=gen) < 0.2] = INVALID_LEFT
+        k[torch.rand(shape, generator=gen) < 0.2] = INVALID_RIGHT
+    return k
+
+
+def _inverse_of_stable_argsort(rank, keys):
+    perm = torch.argsort(keys, dim=-1, stable=True)
+    want = torch.empty_like(rank).scatter_(
+        -1, perm, torch.arange(keys.shape[-1], dtype=torch.int32,
+                               device=keys.device).expand_as(rank).contiguous())
+    return torch.equal(rank, want)
+
+
+@pytest.mark.parametrize("kind", ["equal", "int32_min", "sentinels"])
+@pytest.mark.parametrize("n", [1, 33, 4096, 20480, 20481, 70001, 1 << 18])
+def test_sort_ranks_edges(cuda, n, kind):
+    """Heavy ties, INT32_MIN and both sentinels on each side of the
+    threshold: the compare path up to 20,480 keys (1 device launch), the
+    radix path above (12). Bit for bit against the plain version where its
+    quadratic blocks are quick, and the inverse of the stable argsort."""
+    keys = _rank_keys(kind, (n,), torch.Generator().manual_seed(n)).to(cuda)
+    radix = sm_kernel.radix_at(n)
+    assert radix == (n > 20480)
+    before = kernels.DEVICE_LAUNCHES["sort_ranks"]
+    got = sm_ops.sort_ranks(keys)
+    assert kernels.DEVICE_LAUNCHES["sort_ranks"] - before == (12 if radix else 1)
+    if n <= 20481:
+        _equal([got], [sm_ref.sort_ranks(keys)])
+    assert _inverse_of_stable_argsort(got, keys)
+
+
+@pytest.mark.parametrize(("path", "n"), [
+    ("compare", 1), ("compare", 31), ("compare", 1000), ("compare", 5003),
+    ("radix", 20481), ("radix", 20483), ("radix", 24576), ("radix", 30001)])
+@pytest.mark.parametrize("lanes", [1, 3, 8])
+def test_sort_ranks_paths_and_lanes_equal_plain(cuda, n, lanes, path):
+    """Each path at sizes on its side of the threshold, stacked and
+    single: each lane equals the plain version; odd n leaves lane rows
+    off a 16-byte boundary."""
+    assert sm_kernel.radix_at(n) == (path == "radix")
+    keys = _rank_keys("sentinels", (lanes, n),
+                      torch.Generator().manual_seed(n + lanes)).to(cuda)
+    got = sm_kernel.sort_ranks_cuda(keys)
+    for w in range(lanes):
+        want = sm_ref.sort_ranks(keys[w])
+        _equal([got[w]], [want])
+        _equal([sm_kernel.sort_ranks_cuda(keys[w].contiguous())], [want])
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 8])
+def test_stacked_sort_ranks_above_the_threshold(cuda, lanes):
+    keys = _rank_keys("int32_min", (lanes, 40_001),
+                      torch.Generator().manual_seed(lanes)).to(cuda)
+    before = kernels.LAUNCHES["sort_ranks"]
+    got = sm_kernel.sort_ranks_cuda(keys)
+    assert kernels.LAUNCHES["sort_ranks"] == before + 1
+    assert _inverse_of_stable_argsort(got, keys)
+    for w in range(lanes):
+        _equal([got[w]], [sm_kernel.sort_ranks_cuda(keys[w].contiguous())])
 
 
 def test_bindings_refuse_what_the_kernels_do_not_take(cuda):
