@@ -18,8 +18,11 @@ Phases (any failure ends the run with a non-zero exit and no "ok" line):
      at every (n_left, capacity) of the full-scale phase, single and
      stacked at the serving width, sort_ranks on both sides of its two
      paths' threshold and up to 2^20 + 3 keys, held there to the inverse
-     of the stable argsort); kernel, plain and one-library-call device
-     times from CUDA events around calls queued ahead of the card, the
+     of the stable argsort, match_layout on both sides of its two paths'
+     threshold, at shapes the optimizer's cap admits and at Q9's largest
+     join, held to the sorted oracle where the dense compares pass 2^26,
+     with its path and compare count); kernel, plain and one-library-call
+     device times from CUDA events around calls queued ahead of the card, the
      host's enqueue of one kernel call and one library call, and each
      call's cost (the larger of its device time and its enqueue), beside
      the least time the card could take for the function (bytes moved
@@ -29,7 +32,7 @@ Phases (any failure ends the run with a non-zero exit and no "ok" line):
      (lane-axis) form of pair_expand, match_layout and sort_ranks at 8
      lanes against 8 single calls, both timed, at a small shape and at
      the engine's largest buckets, with invalid-row sentinel keys, and
-     sort_ranks on its radix path.
+     sort_ranks and match_layout on their sorting paths.
   3. kernel API — the public sort_pairs, argsort_i32 and
      sorted_segment_sum at the reference benchmark's shapes (the path that
      runs bitonic_sort and segment_reduce), held to their plain versions.
@@ -46,7 +49,12 @@ Phases (any failure ends the run with a non-zero exit and no "ok" line):
      program; every kernel was launched; warm latency percentiles, peak
      device memory, and the shapes each query gives pair_expand and
      sort_ranks.
-  6. serving — SPARQLServer on the full-scale store, on the card: two
+  6. matrix backend — the same queries with every join forced onto the
+     matrix backend (join_backend="matrix", which has no size cap): rows
+     equal in order to the mr backend's on the card and, as sets, the
+     hash-join oracle; warm 1 dispatch, 0 compiles, no host sync, also
+     in a stacked program of Q9; match_layout's shapes and paths.
+  7. serving — SPARQLServer on the full-scale store, on the card: two
      rounds of bursts of concurrent same-shape requests (the first pays
      each width's first use; the summary reads the second, which starts
      with another query); every result
@@ -57,10 +65,10 @@ Phases (any failure ends the run with a non-zero exit and no "ok" line):
      request latency percentiles, each burst's dispatch seconds, device
      part and new allocator segments, queries per dispatch and peak
      device memory.
-  7. summary — the stacked-forms line, the kernels line, the card line,
+  8. summary — the stacked-forms line, the kernels line, the card line,
      then the result line.
 
-Each of the paths of phases 3, 5 and 6 runs with the launch counts set to
+Each of the paths of phases 3, 5, 6 and 7 runs with the launch counts set to
 0 just before it and read just after; the kernels line reports each
 kernel's launches from the path that runs it.
 
@@ -393,30 +401,82 @@ def kernel_phase(dev) -> dict[str, dict]:
             f"singles_ms={time_ms(run_singles):.6f}")
         del stacked, singles, s_prefix, s_counts, lane_rows
 
-    # match_layout at the S1 shape and at the optimizer's dense cap
-    for n_l, n_r in ((1024, 64), (4096, 1024)):
-        lk = torch.randint(0, 97, (n_l,), generator=gen, dtype=torch.int32)
-        rk = torch.randint(0, 97, (n_r,), generator=gen, dtype=torch.int32)
-        lk[-(n_l // 8):] = int_max  # invalid-left sentinels
-        rk[-(n_r // 8):] = int_max - 1  # invalid-right sentinels
+    # match_layout at S1's shape and the optimizer's dense cap (the kernels
+    # line), both sides of its two paths' threshold C (the largest square
+    # on the compare path and the next one), shapes the optimizer's cap
+    # admits (2^20 left rows against 4 right keys, every left key
+    # matching; the transpose; 2^11 x 2^11) and Q9's largest join, 2^21 x
+    # 2^18 (the forced matrix backend), with both invalid-row sentinels.
+    # Bit for bit against the plain version where its dense compares stay
+    # under 2^26, elsewhere against the sorted oracle.
+    sorted_at = getattr(smk, "sorted_at", None)  # older trees: one path
+    oracle = getattr(smr, "match_layout_sorted", None)
+    square = 14654  # an older tree's stand-in for the compare path's edge
+    if sorted_at is not None:  # the largest n with n x n on the compare path
+        lo, hi = 1, 1 << 16
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (lo, mid - 1) if sorted_at(mid, mid) else (mid, hi)
+        square = lo
+    ml_shapes = [(1024, 64, "S1"), (4096, 1024, "dense cap"),
+                 (square, square, "largest compare square"),
+                 (square + 1, square + 1, "next square"),
+                 (1 << 20, 4, "every left key matching"),
+                 (4, 1 << 20, "transpose"), (1 << 11, 1 << 11, "square"),
+                 (1 << 21, 1 << 18, "Q9 join 3")]
+    if sorted_at is None:  # the quadratic kernel takes minutes there
+        ml_shapes = ml_shapes[:-1]
+    for n_l, n_r, what in ml_shapes:
+        if what == "every left key matching":
+            lk = torch.randint(0, 4, (n_l,), generator=gen, dtype=torch.int32)
+            rk = torch.arange(n_r, dtype=torch.int32)
+        else:
+            hi = 97 if n_l * n_r <= 1 << 22 else min(n_l, n_r)
+            lk = torch.randint(0, hi, (n_l,), generator=gen, dtype=torch.int32)
+            rk = torch.randint(0, hi, (n_r,), generator=gen, dtype=torch.int32)
+            lk[-max(1, n_l // 8):] = int_max  # invalid-left sentinels
+            rk[-max(1, n_r // 8):] = int_max - 1  # invalid-right sentinels
         lk, rk = lk.to(dev), rk.to(dev)
+        before = device_launches("match_layout")
         got = smk.match_layout_cuda(lk, rk)
-        want = smr.match_layout(lk, rk)
+        per_call = device_launches("match_layout", before)
+        dense = n_l * n_r <= 1 << 26
+        if dense:
+            want, against = smr.match_layout(lk, rk), "the plain version"
+        elif oracle is not None:
+            want, against = oracle(lk, rk), "the sorted oracle"
+        else:
+            want, against = None, "nothing (no oracle in this tree)"
         torch.cuda.synchronize()
+        err = 0 if want is None else max_abs_err(got, want)
+        sort_path = sorted_at is not None and sorted_at(n_l, n_r)
+        compares = 2 * n_l * n_r + n_l * n_l // 2
+        n = n_l + n_r
+        run = lambda: smk.match_layout_cuda(lk, rk)  # noqa: E731
+        log(f"kernel match_layout n_l={n_l} n_r={n_r} ({what}): path "
+            f"{'sorted' if sort_path else 'compare'}; device launches per "
+            f"call {per_call}; compare count {compares}; checked against "
+            f"{against}; device ms, launches per call by kernel "
+            f"{device_breakdown(run) if sort_path else 'one kernel'}")
         record(
-            "match_layout", f"n_l={n_l} n_r={n_r}", max_abs_err(got, want),
-            lambda: smk.match_layout_cuda(lk, rk),
-            lambda: smr.match_layout(lk, rk),
+            "match_layout", f"n_l={n_l} n_r={n_r} ({what})", err, run,
+            (lambda: smr.match_layout(lk, rk)) if dense else None,
             # keys read once, four int32 outputs written once; a sort of
             # both sides and a merge give every output
-            bound(4 * (n_l + n_r) + 4 * (3 * n_l + n_r), n_log_n(n_l + n_r)),
-            # eq and lt per (i, j); earlier-equal left keys per row pair
-            # (at most: blocks with no match skip that pass)
-            2 * n_l * n_r + n_l * (n_l - 1) // 2,
+            bound(4 * (n_l + n_r) + 4 * (3 * n_l + n_r), n_log_n(n)),
+            # sort-and-search: 4 radix passes (a digit taken twice per key)
+            # and a binary search per output count; compare path: eq and
+            # lt per (i, j), earlier-equal left keys per row pair (at most:
+            # blocks with no match skip that pass)
+            8 * n + (3 * n_l + 2 * n_r) * max(1, n.bit_length())
+            if sort_path else compares,
             None,
             "src/repro_torch/kernels/spmm_join/csrc/match_layout.cu",
             "src/repro/kernels/spmm_join/kernel.py:29",
+            primary=what == "dense cap",
+            iters=20 if sort_path or compares <= 1 << 30 else 3,
         )
+        del got, want, lk, rk
 
     # sort_ranks over the right side of a matrix join: S1's 64 keys, the
     # dense cap's sides, both sides of its two paths' threshold T (the
@@ -639,6 +699,12 @@ def stacked_phase(dev) -> list[dict]:
     rk[:, :100] = -(2**31)
     cases.append(("sort_ranks", lambda x: (smk.sort_ranks_cuda(*x),),
                   (rk,), "n=40001 sentinels, INT32_MIN (radix path)"))
+    # match_layout's sort-and-search path (ragged lengths too)
+    lk = keys(40_001, int_max)
+    lk[:, :100] = -(2**31)
+    cases.append(("match_layout", lambda x: smk.match_layout_cuda(*x),
+                  (lk, keys(37, int_max - 1)),
+                  "n_l=40001 n_r=37 sentinels, INT32_MIN (sorted path)"))
     rows = []
     for name, fn, args, shape in cases:
         stacked = fn(args)
@@ -877,13 +943,16 @@ def warm_without_sync(engine, pq) -> None:
 
 def kernel_shapes(pq) -> dict[str, list]:
     """The shapes one run of `pq` gives pair_expand ((lanes,) n_left,
-    capacity per launch) and sort_ranks ((lanes,) n per launch), read by
+    capacity per launch), sort_ranks ((lanes,) n per launch) and
+    match_layout ((lanes,) n_l, n_r and its path per launch), read by
     wrapping their bindings for the run."""
     from repro_torch.kernels.pair_expand import kernel as pek
     from repro_torch.kernels.spmm_join import kernel as smk
 
-    seen: dict[str, list] = {"pair_expand": [], "sort_ranks": []}
+    seen: dict[str, list] = {"pair_expand": [], "sort_ranks": [],
+                             "match_layout": []}
     pair_expand, sort_ranks = pek.pair_expand_cuda, smk.sort_ranks_cuda
+    match_layout = smk.match_layout_cuda
 
     def pe(prefix, counts, capacity):
         seen["pair_expand"].append((*prefix.shape, capacity))
@@ -893,11 +962,20 @@ def kernel_shapes(pq) -> dict[str, list]:
         seen["sort_ranks"].append(tuple(keys.shape))
         return sort_ranks(keys)
 
+    def ml(lk, rk):
+        n_l, n_r = lk.shape[-1], rk.shape[-1]
+        seen["match_layout"].append(
+            (*lk.shape[:-1], n_l, n_r,
+             "sorted" if smk.sorted_at(n_l, n_r) else "compare"))
+        return match_layout(lk, rk)
+
     pek.pair_expand_cuda, smk.sort_ranks_cuda = pe, sr
+    smk.match_layout_cuda = ml
     try:
         pq.run()
     finally:
         pek.pair_expand_cuda, smk.sort_ranks_cuda = pair_expand, sort_ranks
+        smk.match_layout_cuda = match_layout
     return seen
 
 
@@ -905,7 +983,6 @@ def full_scale_phase(dev) -> dict:
     from repro_torch import kernels
     from repro_torch.sparql import lubm
     from repro_torch.sparql.engine import QueryEngine
-    from repro_torch.sparql.parser import parse
 
     t0 = time.perf_counter()
     store = lubm.generate(scale=FULL_SCALE, join_shapes=True, skew_shapes=True)
@@ -976,17 +1053,94 @@ def full_scale_phase(dev) -> dict:
         log(f"  kernel shapes {name}: {report[name]['kernel_shapes']}")
 
     t = time.perf_counter()
-    d = store.dictionary
+    oracle = {name: oracle_rows(store, texts[name]) for name in names}
     for name in names:
-        proj = parse(texts[name]).projection()
-        got = {tuple(d.lookup(r[v]) for v in proj) for r in cpu_rows[name]}
-        check(got == oracle_rows(store, texts[name]),
+        check(id_rows(store, texts[name], cpu_rows[name]) == oracle[name],
               f"{name}: rows != hash-join oracle")
     log(f"full scale: all {len(names)} queries equal the hash-join oracle "
         f"({time.perf_counter() - t:.1f} s, host)")
     return {"launches": launches, "peak_bytes": peak, "queries": report,
             "store": store, "texts": texts, "cpu_rows": cpu_rows,
-            "card_rows": card_rows}
+            "card_rows": card_rows, "oracle": oracle}
+
+
+def id_rows(store, text: str, rows) -> set[tuple]:
+    """Decoded result rows as the set of id tuples the oracle gives."""
+    from repro_torch.sparql.parser import parse
+
+    proj = parse(text).projection()
+    d = store.dictionary
+    return {tuple(d.lookup(r[v]) for v in proj) for r in rows}
+
+
+def matrix_phase(dev, full: dict) -> dict:
+    """Every full-scale query with every join on the matrix backend
+    (join_backend="matrix", no size cap) on the card: rows equal in order
+    to the mr backend's on the card (the matrix join promises mr_join's
+    emission order) and, as sets, to the hash-join oracle; a warm repeat
+    is 1 dispatch, 0 compiles and no host sync, and a stacked program of
+    Q9 (match_layout on its sort-and-search path) runs with no host sync."""
+    from repro_torch import kernels
+    from repro_torch.sparql.engine import QueryEngine
+
+    store, texts = full["store"], full["texts"]
+    mr = QueryEngine(store, device=dev, join_backend="mr")
+    mr_rows = {name: mr.query(text) for name, text in texts.items()}
+    del mr
+    engine = QueryEngine(store, device=dev, join_backend="matrix")
+    torch.cuda.synchronize()
+    clear_launches(kernels)  # the matrix path's launches start here
+    report = {}
+    for name, text in texts.items():
+        pq = engine.prepare(text)
+        t = time.perf_counter()
+        cold = pq.run()
+        cold_s = time.perf_counter() - t
+        lat = []
+        for _ in range(5):
+            t = time.perf_counter()
+            warm = pq.run()
+            lat.append(time.perf_counter() - t)
+        check(warm.stats.n_dispatches == 1 and warm.stats.n_compiles == 0,
+              f"{name} [matrix] warm: {warm.stats}")
+        backends = engine._canonicalize(pq._program)[1].join_backends
+        check(all(b == "matrix" for b in backends),
+              f"{name}: not every join on the matrix backend: {backends}")
+        for run, res in (("cold", cold), ("warm", warm)):
+            check(res.rows == mr_rows[name],
+                  f"{name} [matrix] {run}: rows != the mr backend's rows "
+                  "in order")
+        check(id_rows(store, text, warm.rows) == full["oracle"][name],
+              f"{name} [matrix]: rows != hash-join oracle")
+        warm_without_sync(engine, pq)
+        report[name] = {
+            "rows": len(warm.rows), "backends": list(backends),
+            "cold_s": cold_s, "warm_p50_ms": statistics.median(lat) * 1e3,
+            "device_ms": warm.stats.device_time_s * 1e3,
+            "join_totals": list(warm.stats.join_totals),
+        }
+        log(f"  matrix {name}: {report[name]}")
+    launches = dict(kernels.LAUNCHES)
+    device = dict(kernels.DEVICE_LAUNCHES)
+    log(f"matrix backend: launches {launches}; device launches {device}")
+    for k in ("match_layout", "sort_ranks"):
+        check(launches.get(k, 0) > 0, f"kernel {k} was not launched [matrix]")
+    for name, text in texts.items():  # after the count
+        report[name]["match_layout_shapes"] = (
+            kernel_shapes(engine.prepare(text))["match_layout"])
+        log(f"  matrix {name} match_layout (lanes,) n_l, n_r, path: "
+            f"{report[name]['match_layout_shapes']}")
+    check(any(s[-1] == "sorted" for r in report.values()
+              for s in r["match_layout_shapes"]),
+          "no match_layout launch took the sort-and-search path")
+    pqs = [engine.prepare(texts["Q9"]) for _ in range(2)]
+    engine.run_batch(pqs)  # builds the width-2 program
+    res = engine.run_batch(pqs)
+    check(all(r.rows == mr_rows["Q9"] for r in res),
+          "Q9 [matrix] stacked rows != the mr backend's rows")
+    batch_without_sync(engine, pqs)
+    return {"queries": report, "launches": launches,
+            "device_launches": device}
 
 
 # -- phase 6: serving ----------------------------------------------------------
@@ -1197,13 +1351,15 @@ def main(argv: list[str]) -> int:
     api_launches = kernel_api_phase(dev)
     small_scale_phase(dev)
     full = full_scale_phase(dev)
+    matrix = matrix_phase(dev, full)
     serving = serving_phase(dev, full)
     for name, row in rows.items():
         row["launches"] = (full["launches"] | api_launches).get(name, 0)
         check(row["launches"] > 0, f"kernel {name} was not launched")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     full = {k: full[k] for k in ("launches", "peak_bytes", "queries")}
-    print(json.dumps({"full_scale": full, "serving": serving}), flush=True)
+    print(json.dumps({"full_scale": full, "matrix": matrix,
+                      "serving": serving}), flush=True)
     print(json.dumps({"stacked": stacked}), flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(card, flush=True)

@@ -53,7 +53,10 @@ def _expand_gather(counts, first, b, cl, pos_r, capacity: int):
     increasing along the emission order, decodable with one mod — is
     scattered at range starts and cummax-filled to invert the mapping.
     Zero-count rows and starts past the capacity land in a spare slot that
-    is sliced off (the reference drops them).
+    is sliced off (the reference drops them). The code is int64: first[i] *
+    n_l reaches 2^31 once n_l * n_r does, and a wrapped code is not
+    monotone (the reference keeps it int32, so its rows leave mr_join's
+    order there).
     """
     n_l, n_r = counts.shape[0], pos_r.shape[0]
     dev = counts.device
@@ -71,10 +74,10 @@ def _expand_gather(counts, first, b, cl, pos_r, capacity: int):
     start = before_key + b
     total = counts.sum(dtype=_I32)
     idx = torch.where(counts > 0, start, capacity).clamp(0, capacity)
-    marks = torch.zeros(capacity + 1, dtype=_I32, device=dev).scatter(
-        0, idx.long(), first * n_l + rows
+    marks = torch.zeros(capacity + 1, dtype=torch.int64, device=dev).scatter(
+        0, idx.long(), first.long() * n_l + rows
     )
-    li = torch.cummax(marks[:capacity], dim=0).values % max(n_l, 1)
+    li = (torch.cummax(marks[:capacity], dim=0).values % max(n_l, 1)).to(_I32)
     k = torch.arange(capacity, dtype=_I32, device=dev)
     r_k = k - start[li]  # occurrence rank of slot k within its left row
     rj = j_at[(first[li] + r_k).clamp(0, max(n_r - 1, 0))]

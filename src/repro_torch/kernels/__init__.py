@@ -45,8 +45,9 @@ NVCC_FLAGS = (
 LAUNCHES: collections.Counter = collections.Counter()
 # Device launches made by those calls, as the launchers of bitonic_sort
 # (1 within one tile, 12 above), sort_ranks (1 up to its threshold, 12
-# above) and segment_reduce (1 or 2) report them; the launchers of
-# pair_expand and match_layout make one device launch per call.
+# above), match_layout (1 up to its threshold, 25 above) and
+# segment_reduce (1 or 2) report them; the launcher of pair_expand makes
+# one device launch per call.
 DEVICE_LAUNCHES: collections.Counter = collections.Counter()
 
 _libs: dict[tuple[str, str], ctypes.CDLL] = {}

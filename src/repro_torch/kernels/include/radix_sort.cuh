@@ -1,6 +1,7 @@
 // The passes of a stable least-significant-digit radix sort of int32 keys
 // with an int32 payload, shared by csrc/bitonic_sort.cu (sort_pairs above
-// one tile) and csrc/sort_ranks.cu (ranks above its threshold).
+// one tile), csrc/sort_ranks.cu (ranks above its threshold) and
+// csrc/match_layout.cu (both sides of its sort-and-search path).
 //
 // Four passes of 8-bit digits of k ^ 0x80000000 (signed order as unsigned
 // order); each pass is three launches over tiles of kTile keys:

@@ -23,9 +23,9 @@
 //     compared with every row (keys before the block's rows count when
 //     <=, keys after it when <, so the index test is needed only for the
 //     block's own kRows keys). A warp's per-row counts meet in lane r by
-//     a reduce-scatter of 31 shuffles, the warps' in shared memory. No
-//     atomics, no memset: deterministic. At n = 4096 that is 128 blocks,
-//     16 loads a thread;
+//     a reduce-scatter of 31 shuffles (include/compare_fold.cuh), the
+//     warps' in shared memory. No atomics, no memset: deterministic. At
+//     n = 4096 that is 128 blocks, 16 loads a thread;
 //   * n > kCountMax: the stable LSD radix sort of include/radix_sort.cuh
 //     on (k ^ 0x80000000, index), 4 passes of count / scan / scatter, 12
 //     device launches. The first pass takes each key's index as its
@@ -34,6 +34,7 @@
 //     pairs and histograms are the binding's (torch.empty, per lane).
 #include <cuda_runtime.h>
 
+#include "compare_fold.cuh"
 #include "radix_sort.cuh"
 
 namespace {
@@ -45,24 +46,8 @@ namespace {
 constexpr int kCountMax = 20480;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 32;  // rows a block ranks: one per lane
-constexpr unsigned kFull = 0xffffffffu;
-
-// One step of a warp's reduce-scatter of per-row counts: after the step
-// of distance S, acc[k] (k < S) holds the partial count of row k + (the
-// lane's bits from S up), summed over the lanes that differ from it below
-// 2S; after S = 1, acc[0] is the warp's count of row `lane`. 31 shuffles.
-template <int S>
-__device__ __forceinline__ void fold(int (&acc)[kRows], int lane) {
-  const bool upper = lane & S;
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    const int send = upper ? acc[k] : acc[k + S];
-    const int keep = upper ? acc[k + S] : acc[k];
-    acc[k] = keep + __shfl_xor_sync(kFull, send, S);
-  }
-  if constexpr (S > 1) fold<S / 2>(acc, lane);
-}
+using compare::fold;
+using compare::kRows;
 
 __global__ void __launch_bounds__(kThreads)
     rank_compare_kernel(const int* __restrict__ keys, int n,

@@ -1,7 +1,8 @@
 """ctypes bindings of the CUDA layout kernels (csrc/match_layout.cu and
 csrc/sort_ranks.cu). Each takes (n,) inputs or a stack of lanes (lanes, n)
-and makes one launcher call either way (sort_ranks: one device launch up
-to its threshold, 12 above)."""
+and makes one launcher call either way: one device launch up to its
+threshold, more above (match_layout: 25, sort_ranks: 12), the path picked
+by the lengths alone."""
 from __future__ import annotations
 
 import ctypes
@@ -16,12 +17,28 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-@functools.cache  # one lookup and argtypes setup per launcher
-def _launcher(stem: str, argtypes: tuple):
-    fn = getattr(kernels.load(PACKAGE, stem), f"{stem}_launch")
+@functools.cache  # one lookup and argtypes setup per C function
+def _c_function(stem: str, name: str, argtypes: tuple, restype=_I):
+    fn = getattr(kernels.load(PACKAGE, stem), name)
     fn.argtypes = list(argtypes)
-    fn.restype = _I
+    fn.restype = restype
     return fn
+
+
+def _launcher(stem: str, argtypes: tuple):
+    return _c_function(stem, f"{stem}_launch", argtypes)
+
+
+def _scratch_ints(stem: str, *shape: int) -> int:
+    """Ints of scratch a launcher needs for (lanes, lengths...), from its
+    `*_scratch_ints` C function: 0 on its one-launch path."""
+    return _c_function(stem, f"{stem}_scratch_ints", (_I,) * len(shape),
+                       ctypes.c_longlong)(*shape)
+
+
+def _scratch(stem: str, device, *shape: int):
+    ints = _scratch_ints(stem, *shape)
+    return torch.empty(ints, dtype=torch.int32, device=device) if ints else None
 
 
 def _check_keys(x: torch.Tensor, what: str) -> tuple[int, int]:
@@ -32,8 +49,16 @@ def _check_keys(x: torch.Tensor, what: str) -> tuple[int, int]:
     return lanes, n
 
 
+def sorted_at(n_l: int, n_r: int) -> bool:
+    """Whether the launcher lays out n_l left and n_r right keys on its
+    sort-and-search path (the compare count 2 n_l n_r + n_l^2 / 2 above
+    the compare path's threshold; 25 device launches instead of 1)."""
+    return _scratch_ints("match_layout", 1, n_l, n_r) > 0
+
+
 def match_layout_cuda(left_keys: torch.Tensor, right_keys: torch.Tensor):
-    """(counts, first, b) per left row and cl per right row, on the card."""
+    """(counts, first, b) per left row and cl per right row, on the card.
+    The launcher picks its path by the lengths."""
     lanes, n_l = _check_keys(left_keys, "left_keys")
     r_lanes, n_r = _check_keys(right_keys, "right_keys")
     if (left_keys.dim() != right_keys.dim() or lanes != r_lanes
@@ -48,30 +73,29 @@ def match_layout_cuda(left_keys: torch.Tensor, right_keys: torch.Tensor):
     cl = torch.empty(right_keys.shape, dtype=torch.int32, device=dev)
     if lanes == 0:
         return counts, first, b, cl
-    fn = _launcher("match_layout", (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P))
+    # the sort-and-search path's (key, index) pairs and histograms
+    scratch = _scratch("match_layout", dev, lanes, n_l, n_r)
+    device_launches = ctypes.c_int(0)
+    fn = _launcher("match_layout",
+                   (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P))
     with torch.cuda.device(dev):
         err = fn(
             left_keys.data_ptr(), right_keys.data_ptr(), lanes, n_l, n_r,
             counts.data_ptr(), first.data_ptr(), b.data_ptr(), cl.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            ctypes.addressof(device_launches),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     kernels.check_launch("match_layout", err)
     kernels.LAUNCHES["match_layout"] += 1
+    kernels.DEVICE_LAUNCHES["match_layout"] += device_launches.value
     return counts, first, b, cl
-
-
-@functools.cache
-def _sort_ranks_scratch_ints():
-    fn = kernels.load(PACKAGE, "sort_ranks").sort_ranks_scratch_ints
-    fn.argtypes = [_I, _I]
-    fn.restype = ctypes.c_longlong
-    return fn
 
 
 def radix_at(n: int) -> bool:
     """Whether the launcher ranks n keys on its radix path (n above the
     compare path's threshold; 12 device launches instead of 1)."""
-    return _sort_ranks_scratch_ints()(1, n) > 0
+    return _scratch_ints("sort_ranks", 1, n) > 0
 
 
 def sort_ranks_cuda(keys: torch.Tensor) -> torch.Tensor:
@@ -82,10 +106,8 @@ def sort_ranks_cuda(keys: torch.Tensor) -> torch.Tensor:
     rank = torch.empty(keys.shape, dtype=torch.int32, device=dev)
     if lanes == 0:
         return rank
-    scratch_ints = _sort_ranks_scratch_ints()(lanes, n)
     # the radix path's two (key, index) pairs and histograms, per lane
-    scratch = (torch.empty(scratch_ints, dtype=torch.int32, device=dev)
-               if scratch_ints else None)
+    scratch = _scratch("sort_ranks", dev, lanes, n)
     device_launches = ctypes.c_int(0)
     fn = _launcher("sort_ranks", (_P, _I, _I, _P, _P, _P, _P))
     with torch.cuda.device(dev):

@@ -44,6 +44,36 @@ def match_layout(left_keys: torch.Tensor, right_keys: torch.Tensor):
     return counts, first, b, carry
 
 
+def match_layout_sorted(left_keys: torch.Tensor, right_keys: torch.Tensor):
+    """match_layout's outputs from sorted sides and searches, the identities
+    of the CUDA kernel's sort-and-search path: the oracle for shapes where
+    the dense compares are too many (tests and chip_smoke.py call it; no
+    op does). With lk_sorted, rk_sorted the stably sorted keys and p[i] the
+    sorted position of left row i:
+
+      first[i]  = lower_bound(rk_sorted, lk[i])
+      counts[i] = upper_bound(rk_sorted, lk[i]) - first[i]
+      b[i]      = counts[i] * (p[i] - lower_bound(lk_sorted, lk[i]))
+      cl[j]     = upper_bound(lk_sorted, rk[j]) - lower_bound(lk_sorted, rk[j])
+
+    b wraps mod 2^32 as the dense version's int32 sum does. Takes (n,)
+    keys or stacks of lanes (lanes, n).
+    """
+    left_keys, right_keys = left_keys.contiguous(), right_keys.contiguous()
+    lk_sorted, order = torch.sort(left_keys, dim=-1, stable=True)
+    rk_sorted = torch.sort(right_keys, dim=-1).values
+    pos = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(order.shape[-1], device=order.device)
+        .expand_as(order).contiguous())
+    first = torch.searchsorted(rk_sorted, left_keys)
+    counts = torch.searchsorted(rk_sorted, left_keys, right=True) - first
+    occ = pos - torch.searchsorted(lk_sorted, left_keys)
+    b = (counts * occ + 2**31) % 2**32 - 2**31  # int64 products, wrapped
+    cl = (torch.searchsorted(lk_sorted, right_keys, right=True)
+          - torch.searchsorted(lk_sorted, right_keys))
+    return tuple(x.to(torch.int32) for x in (counts, first, b, cl))
+
+
 def sort_ranks(keys: torch.Tensor) -> torch.Tensor:
     """rank[j] = |{j' : keys[j'] < keys[j]}| + |{j' < j : keys[j'] == keys[j]}|
     — each row's stable sorted position (a permutation of 0..n-1)."""

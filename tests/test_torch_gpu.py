@@ -219,6 +219,124 @@ def test_stacked_sort_ranks_above_the_threshold(cuda, lanes):
         _equal([got[w]], [sm_kernel.sort_ranks_cuda(keys[w].contiguous())])
 
 
+def _layout_keys(kind, n_l, n_r, lanes, seed, device):
+    """Left and right keys with shared values (ties), the invalid-row
+    sentinel of each side and INT32_MIN; (lanes, n) when lanes."""
+    gen = torch.Generator().manual_seed(seed)
+    shape = (lambda n: (lanes, n)) if lanes else (lambda n: (n,))
+    if kind == "equal":
+        return (torch.full(shape(n_l), 5, dtype=torch.int32, device=device),
+                torch.full(shape(n_r), 5, dtype=torch.int32, device=device))
+    hi = max(2, min(n_l, n_r) // 4)
+    sides = []
+    for n, sentinel in ((n_l, INVALID_LEFT), (n_r, INVALID_RIGHT)):
+        k = torch.randint(0, hi, shape(n), generator=gen, dtype=torch.int32)
+        k[torch.rand(shape(n), generator=gen) < 0.15] = sentinel
+        k[torch.rand(shape(n), generator=gen) < 0.05] = -(2**31)
+        sides.append(k.to(device))
+    return tuple(sides)
+
+
+def _largest_compare_square():
+    """The largest n with an n x n layout on the compare path."""
+    lo, hi = 1, 1 << 16
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (lo, mid - 1) if sm_kernel.sorted_at(mid, mid) else (mid, hi)
+    return lo
+
+
+_LAYOUT_SHAPES = [  # (path, n_l, n_r); 0: the largest compare square
+    ("compare", 0, 0), ("compare", 4096, 1024), ("compare", 5, 70001), ("compare", 256, 5000), ("compare", 257, 5000),
+    ("sorted", 1, 1), ("sorted", 40001, 3),
+    ("sorted", 70001, 1), ("sorted", 1 << 15, 100)]
+
+
+@pytest.mark.parametrize("kind", ["ties", "equal"])
+@pytest.mark.parametrize(("path", "n_l", "n_r"), _LAYOUT_SHAPES)
+def test_match_layout_paths_equal_plain(cuda, path, n_l, n_r, kind):
+    """Each path on its side of the threshold, at its edge (the largest
+    compare square and the next one), and the compare path's column
+    blocks on both sides of 256 left keys (a right key a thread up to
+    it): 1 device launch on the compare path, 25 on the sort-and-search
+    path, bit-equal to the dense plain version and to the sorted
+    oracle."""
+    if n_l == 0:
+        n_l = n_r = _largest_compare_square()
+    elif path == "sorted" and n_l == 1:
+        n_l = n_r = _largest_compare_square() + 1
+    assert sm_kernel.sorted_at(n_l, n_r) == (path == "sorted")
+    lk, rk = _layout_keys(kind, n_l, n_r, 0, n_l + n_r, cuda)
+    before = kernels.DEVICE_LAUNCHES["match_layout"]
+    got = sm_ops.match_layout(lk, rk)
+    launched = kernels.DEVICE_LAUNCHES["match_layout"] - before
+    assert launched == (25 if path == "sorted" else 1)
+    _equal(got, sm_ref.match_layout(lk, rk))
+    _equal(got, sm_ref.match_layout_sorted(lk, rk))
+
+
+@pytest.mark.parametrize(("n_l", "n_r"), [
+    (1 << 20, 4), (4, 1 << 20), (32770, 65536)])
+def test_match_layout_long_sides_equal_sorted_oracle(cuda, n_l, n_r):
+    """Shapes the optimizer's cap admits: 2^20 left rows against 4 right
+    keys, every left key matching (the sort-and-search path), and the
+    transpose (the compare path); and all-equal keys whose b = counts *
+    occ passes 2^31 and wraps as the reference's int32 sum."""
+    if n_l == 32770:
+        lk = torch.full((n_l,), 7, dtype=torch.int32, device=cuda)
+        rk = torch.full((n_r,), 7, dtype=torch.int32, device=cuda)
+    else:
+        gen = torch.Generator().manual_seed(n_l)
+        small = torch.arange(4, dtype=torch.int32)
+        big = torch.randint(0, 4, (1 << 20,), generator=gen, dtype=torch.int32)
+        lk, rk = ((big, small) if n_l > n_r else (small, big))
+        lk, rk = lk.to(cuda), rk.to(cuda)
+    got = sm_ops.match_layout(lk, rk)
+    want = sm_ref.match_layout_sorted(lk, rk)
+    _equal(got, want)
+    if n_l == 1 << 20:
+        assert sm_kernel.sorted_at(n_l, n_r)
+        assert bool((got[0] == 1).all())
+    if n_l == 32770:
+        assert int(got[2][-1]) < 0
+    _equal(got, sm_ref.match_layout(lk, rk))
+
+
+@pytest.mark.parametrize(("path", "n_l", "n_r"), [
+    ("compare", 700, 300), ("compare", 33, 4097),
+    ("sorted", 40001, 37), ("sorted", 50001, 5)])
+@pytest.mark.parametrize("lanes", [1, 3, 8])
+def test_stacked_match_layout_paths_equal_single_calls(cuda, path, n_l, n_r,
+                                                       lanes):
+    """One launcher call for every lane, on each path; odd lengths leave
+    lane rows off a 16-byte boundary."""
+    assert sm_kernel.sorted_at(n_l, n_r) == (path == "sorted")
+    lk, rk = _layout_keys("ties", n_l, n_r, lanes, lanes + n_l, cuda)
+    before = kernels.LAUNCHES["match_layout"]
+    got = sm_kernel.match_layout_cuda(lk, rk)
+    assert kernels.LAUNCHES["match_layout"] == before + 1
+    for w in range(lanes):
+        single = sm_kernel.match_layout_cuda(lk[w].contiguous(),
+                                             rk[w].contiguous())
+        _equal([g[w] for g in got], single)
+        _equal(single, sm_ref.match_layout(lk[w], rk[w]))
+
+
+def test_sorted_at_is_monotone_in_each_side(cuda):
+    sizes = [1, 2, 31, 32, 33, 1000, 4096, 10_000, 20_000, 32_768, 32_769,
+             100_000, 1 << 20, 1 << 22]
+    table = {(a, c): sm_kernel.sorted_at(a, c) for a in sizes for c in sizes}
+    for (a, c), s in table.items():
+        for a2 in sizes:
+            if a2 >= a:
+                assert table[(a2, c)] >= s, (a, a2, c)
+        for c2 in sizes:
+            if c2 >= c:
+                assert table[(a, c2)] >= s, (a, c, c2)
+    assert not sm_kernel.sorted_at(4096, 1024)
+    assert sm_kernel.sorted_at(1 << 20, 4)
+
+
 def test_bindings_refuse_what_the_kernels_do_not_take(cuda):
     x64 = torch.zeros(8, dtype=torch.int64, device=cuda)
     x32 = torch.zeros(8, dtype=torch.int32, device=cuda)

@@ -531,6 +531,13 @@ def test_radix_sources_include_the_shared_header():
     header = kernels.INCLUDE_DIR / "radix_sort.cuh"
     assert header.is_file()
     for package, stem in (("bitonic_sort", "bitonic_sort"),
-                          ("spmm_join", "sort_ranks")):
+                          ("spmm_join", "sort_ranks"),
+                          ("spmm_join", "match_layout")):
         text = kernels.source(package, stem).read_text()
         assert '#include "radix_sort.cuh"' in text
+    # the compare paths' warp reduce-scatter lives in one header
+    assert (kernels.INCLUDE_DIR / "compare_fold.cuh").is_file()
+    for stem in ("sort_ranks", "match_layout"):
+        text = kernels.source("spmm_join", stem).read_text()
+        assert '#include "compare_fold.cuh"' in text
+        assert "void fold(" not in text
