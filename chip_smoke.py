@@ -65,10 +65,27 @@ Phases (any failure ends the run with a non-zero exit and no "ok" line):
      request latency percentiles, each burst's dispatch seconds, device
      part and new allocator segments, queries per dispatch and peak
      device memory.
-  8. summary — the stacked-forms line, the kernels line, the card line,
+  8. sharded engine — LUBM scale 2 at 8 shards and on a 2 x 2 mesh (card
+     arrays equal the CPU port's sharded engine's, rows the single-device
+     engine's); then the full-scale store subject-hash sharded over 4
+     shards, every shard on the one card (ShardedQueryEngine): every LUBM
+     query and the F1 / O1 / FO1 / U1 / DISTINCT / LIMIT shapes (and S1,
+     Q4 with every join on the matrix backend), rows equal as multisets
+     to the single-device card engine's and, where it applies, the
+     hash-join oracle's; warm 1 dispatch, 0 compiles, no host
+     sync; Q9's worst per-shard join bucket below the single-device
+     bucket; a program at the smallest join and shuffle buckets retried to
+     the same rows; a stacked FILTER-constant group (also with no host
+     sync) and a short server burst; warm p50 and device part of both
+     engines, and for Q1, Q2, Q9 and S1 each engine's plan program alone
+     (card busy time, device launches and the top kernels from the
+     profiler, host enqueue); shuffles
+     emitted / elided / broadcast per query, launches per kernel and peak
+     device memory.
+  9. summary — the stacked-forms line, the kernels line, the card line,
      then the result line.
 
-Each of the paths of phases 3, 5, 6 and 7 runs with the launch counts set to
+Each of the paths of phases 3, 5, 6, 7 and 8 runs with the launch counts set to
 0 just before it and read just after; the kernels line reports each
 kernel's launches from the path that runs it.
 
@@ -196,8 +213,10 @@ def device_breakdown(fn, calls: int = 5):
               or getattr(ev, "cuda_time_total", 0))
         if us:
             name = re.search(r"[a-z][a-z_]*_kernel(<[^>]*>)?", ev.key)
-            out[name.group(0) if name else ev.key[:40]] = (
-                round(us / 1e3 / calls, 6), ev.count / calls)
+            key = name.group(0) if name else ev.key[:40]
+            ms, n = out.get(key, (0.0, 0.0))  # kernels sharing a short name
+            out[key] = (round(ms + us / 1e3 / calls, 6),
+                        n + ev.count / calls)
     return out or "not measured"
 
 
@@ -1302,6 +1321,268 @@ def serving_phase(dev, full: dict) -> dict:
     return {"summary": summary, "queries": report}
 
 
+# -- phase 8: the sharded engine -----------------------------------------------
+
+SHARDS = 4
+SHARDED_REPEATS = 10
+# queries whose plan program alone is timed on both engines
+PROFILED = ("Q1", "Q2", "Q9", "S1")
+
+
+def sharded_queries(lubm) -> dict[str, str]:
+    """Every LUBM query and the reference sharded program's F1 / O1 / FO1
+    / U1 / DISTINCT / LIMIT shapes."""
+    qs = {**lubm.QUERIES, **lubm.S_QUERIES, **lubm.OPERATOR_QUERIES}
+    qs["D1q"] = lubm.PREFIX + "SELECT DISTINCT ?d WHERE { ?s ub:memberOf ?d . }"
+    qs["L1"] = lubm.PREFIX + ("SELECT ?s ?d WHERE { ?s ub:memberOf ?d . } "
+                              "LIMIT 17")
+    return qs
+
+
+def row_multiset(rows) -> list:
+    return sorted(tuple(sorted(r.items())) for r in rows)
+
+
+def warm_runs(pq, n: int):
+    """`n` warm runs: (last result, wall p50 ms, device-part p50 ms), each
+    run checked to be 1 dispatch and 0 compiles."""
+    lat, dev_lat = [], []
+    for _ in range(n):
+        t = time.perf_counter()
+        res = pq.run()
+        lat.append(time.perf_counter() - t)
+        dev_lat.append(res.stats.device_time_s)
+        check(res.stats.n_dispatches == 1 and res.stats.n_compiles == 0,
+              f"warm run: {res.stats}")
+    return (res, statistics.median(lat) * 1e3,
+            statistics.median(dev_lat) * 1e3)
+
+
+def program_cost(engine, pq) -> dict:
+    """One warm plan program of `pq` alone (scans staged, constants on the
+    card): the card's busy time per call (the sum of its kernels' device
+    times, from the profiler), its device launches and the kernels that
+    take most of that time ((ms, launches) per call), and its host
+    enqueue. Where the enqueue is the larger, the host sets the pace."""
+    canon, shape, _ = engine._canonicalize(pq._program)
+    consts = engine._device_consts(pq._program)
+    program = engine.plan_cache.get(shape).compiled
+
+    def call():
+        return program(canon, *consts)
+
+    kernels_run = device_breakdown(call, calls=3)
+    if not isinstance(kernels_run, dict):
+        return {"busy_ms": kernels_run, "enqueue_ms": enqueue_ms(call, 10)}
+    return {
+        "busy_ms": sum(ms for ms, _ in kernels_run.values()),
+        "device_launches": sum(n for _, n in kernels_run.values()),
+        "top_kernels": dict(sorted(
+            kernels_run.items(), key=lambda kv: -kv[1][0])[:4]),
+        "enqueue_ms": enqueue_ms(call, iters=10),
+    }
+
+
+def sharded_small_phase(dev) -> None:
+    """LUBM scale 2 at 8 shards and on a 2 x 2 mesh, for correctness: the
+    card's result arrays equal the CPU port's sharded engine's, and its
+    rows, as multisets, the single-device card engine's."""
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.sparql import lubm
+    from repro_torch.sparql.engine import QueryEngine, ShardedQueryEngine
+    from repro_torch.sparql.parser import parse
+    from repro_torch.sparql.sharded_store import shard_store
+
+    base = lubm.generate(scale=SMALL_SCALE, join_shapes=True, skew_shapes=True)
+    single = QueryEngine(base, device=dev)
+    qs = {**all_queries(lubm), **sharded_queries(lubm)}
+    for n, mesh in ((8, None), (4, make_mesh((2, 2), ("pod", "data")))):
+        engines = {d: ShardedQueryEngine(shard_store(base, n), device=d,
+                                         mesh=mesh) for d in (dev, "cpu")}
+        for name, text in qs.items():
+            q = parse(text)
+            for run in ("cold", "warm"):
+                (rc, sc), (rh, _) = (engines[d].execute(q)
+                                     for d in (dev, "cpu"))
+                check(torch.equal(rc.cols.cpu(), rh.cols)
+                      and torch.equal(rc.valid.cpu(), rh.valid),
+                      f"sharded {n} {name} {run}: cuda arrays != cpu arrays")
+            check(sc.n_dispatches == 1 and sc.n_compiles == 0,
+                  f"sharded {n} {name} warm: {sc}")
+            got = row_multiset(engines[dev].query(text))
+            want = row_multiset(single.query(text))
+            if "LIMIT" in text:
+                check(len(got) == len(want), f"sharded {n} {name}: length")
+            else:
+                check(got == want, f"sharded {n} {name}: rows != single")
+        log(f"sharded small scale ({n} shards, mesh "
+            f"{engines[dev].mesh.axis_sizes}): {len(qs)} queries, cuda == "
+            "cpu, rows == the single-device engine's")
+
+
+def sharded_phase(dev, full: dict) -> dict:
+    """The full-scale store subject-hash sharded over SHARDS shards on the
+    card: every query's rows equal the single-device card engine's (as
+    multisets) and, where the hash-join oracle applies, the oracle's; a
+    warm repeat is 1 dispatch, 0 compiles and no host sync; Q9's worst
+    per-shard join bucket is below the single-device bucket; a program at
+    the smallest buckets retries to the same rows; a stacked group and a
+    short server burst over the sharded engine. Warm p50 and device part
+    of both engines, in this call."""
+    from repro_torch import kernels
+    from repro_torch.serve.sparql_server import SPARQLServer
+    from repro_torch.sparql import lubm
+    from repro_torch.sparql.engine import (
+        ExecStats, QueryEngine, ShardedQueryEngine,
+    )
+    from repro_torch.sparql.sharded_store import shard_store
+
+    store = full["store"]
+    qs = sharded_queries(lubm)
+    t = time.perf_counter()
+    sharded_store = shard_store(store, SHARDS)
+    log(f"sharded: {SHARDS} shards of {sharded_store.shard_sizes()} triples "
+        f"({time.perf_counter() - t:.1f} s, host)")
+    single = QueryEngine(store, device=dev)
+    engine = ShardedQueryEngine(sharded_store, device=dev)
+    oracle = dict(full["oracle"])
+    oracle["D1q"] = oracle_rows(store, qs["D1q"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clear_launches(kernels)  # the sharded path's launches start here
+    report = {}
+    for name, text in qs.items():
+        spq = engine.prepare(text)
+        t = time.perf_counter()
+        cold = spq.run()
+        cold_s = time.perf_counter() - t
+        warm, p50, dev50 = warm_runs(spq, SHARDED_REPEATS)
+        st = warm.stats
+        report[name] = {
+            "rows": len(warm.rows), "cold_s": cold_s,
+            "warm_p50_ms": p50, "device_p50_ms": dev50,
+            "shuffles_emitted": st.n_shuffles_emitted,
+            "shuffles_elided": st.n_shuffles_elided,
+            "broadcast_joins": st.n_broadcast_joins,
+            "peak_join_bucket": st.peak_join_bucket,
+            "join_totals": list(st.join_totals),
+            "join_worst": list(st.join_worst),
+            "shuffle_loads": list(st.shuffle_loads),
+            "backends": list(spq._program.plan.join_backends),
+            "rows_cold_equal_warm": row_multiset(cold.rows)
+            == row_multiset(warm.rows),
+        }
+    # the local matrix join: every join of S1 and Q4 on the matrix backend
+    matrix = ShardedQueryEngine(sharded_store, device=dev,
+                                join_backend="matrix")
+    matrix_rows = {}
+    for name in ("S1", "Q4"):
+        pq = matrix.prepare(qs[name])
+        pq.run()
+        matrix_rows[name] = warm_runs(pq, 2)[0].rows
+    launches = dict(kernels.LAUNCHES)
+    device = dict(kernels.DEVICE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"sharded: peak device memory {peak} bytes; launches {launches}; "
+        f"device launches {device}")
+    for k in ("pair_expand", "match_layout", "sort_ranks"):
+        check(launches.get(k, 0) > 0, f"kernel {k} was not launched [sharded]")
+    for name, rows in matrix_rows.items():
+        check(row_multiset(rows) == row_multiset(single.query(qs[name])),
+              f"{name} [sharded, matrix]: rows != the single-device rows")
+
+    # the single-device card engine, the same queries, after the count
+    for name, text in qs.items():
+        pq = single.prepare(text)
+        pq.run()
+        warm, p50, dev50 = warm_runs(pq, SHARDED_REPEATS)
+        r = report[name]
+        r.update(single_p50_ms=p50, single_device_p50_ms=dev50,
+                 single_peak_join_bucket=warm.stats.peak_join_bucket)
+        spq = engine.prepare(text)
+        got = row_multiset(spq.run().rows)
+        check(r["rows_cold_equal_warm"], f"{name} [sharded]: cold != warm")
+        if "LIMIT" in text:
+            full_rows = set(row_multiset(
+                single.query(text.split("LIMIT")[0])))
+            check(len(got) == len(warm.rows) and set(got) <= full_rows,
+                  f"{name} [sharded]: not a right-sized slice")
+        else:
+            check(got == row_multiset(warm.rows),
+                  f"{name} [sharded]: rows != the single-device rows")
+        if name in oracle:
+            check(id_rows(store, text, spq.run().rows) == oracle[name],
+                  f"{name} [sharded]: rows != hash-join oracle")
+        check(r["peak_join_bucket"] <= r["single_peak_join_bucket"],
+              f"{name} [sharded]: per-shard bucket above the single one")
+        warm_without_sync(engine, spq)
+        if name in PROFILED:
+            r["program"] = program_cost(engine, spq)
+            r["single_program"] = program_cost(single, pq)
+        log(f"  sharded {name}: {r}")
+    check(report["Q9"]["peak_join_bucket"]
+          < report["Q9"]["single_peak_join_bucket"],
+          "Q9's worst per-shard join bucket is not below the single one")
+
+    # the retry: a program at the smallest join and shuffle buckets
+    retries = {}
+    for name in ("Q2", "Q9"):
+        pq = engine.prepare(qs[name])
+        pq.run()
+        shape = engine._batch_context(pq._program).shape
+        entry = engine.plan_cache.get(shape)
+        engine._compile_entry(
+            shape, (8,) * len(entry.join_caps), ExecStats(),
+            shuffle_caps=(8,) * len(entry.compiled.shuffle_caps),
+        )
+        res = pq.run()
+        check(res.stats.n_retries >= 1, f"{name}: no retry at the "
+              "smallest buckets")
+        check(row_multiset(res.rows) == row_multiset(single.query(qs[name])),
+              f"{name} [sharded retry]: rows != the single-device rows")
+        grown = engine.plan_cache.get(shape).compiled.shuffle_caps
+        retries[name] = {"retries": res.stats.n_retries,
+                         "join_overflows": list(res.stats.join_overflows),
+                         "shuffle_caps": list(grown)}
+        log(f"  sharded retry {name}: {retries[name]}")
+    check(any(c > 8 for r in retries.values() for c in r["shuffle_caps"]),
+          "no shuffle bucket overflowed and grew in the retry runs")
+
+    # run_batch of a same-shape group, and one stacked program with no sync
+    variants = [qs["F1"].replace("prof_0_0_0", v) for v in
+                ("prof_0_0_0", "prof_0_1_0", "prof_1_0_0", "nobody")]
+    engine.run_batch([engine.prepare(v) for v in variants])
+    out = engine.run_batch([engine.prepare(v) for v in variants])
+    (group,) = engine.last_batch
+    check(group.widths == (4,) and group.n_dispatches == 1
+          and not group.fallback, f"sharded run_batch: {group}")
+    for v, rs in zip(variants, out):
+        check(row_multiset(rs.rows) == row_multiset(single.query(v)),
+              "sharded run_batch rows != the single-device rows")
+    batch_without_sync(engine, [engine.prepare(v) for v in variants])
+
+    # a short server burst over the sharded engine
+    srv = SPARQLServer(engine, max_batch=8, max_wait_s=0.02)
+    burst_lat = {}
+    try:
+        for name in ("Q1", "Q4", "Q7"):
+            want = row_multiset(single.query(qs[name]))
+            got = engine.query(qs[name])
+            check(row_multiset(got) == want, f"{name}: sharded rows")
+            lat = burst(srv, qs[name], 8, got, got)
+            burst_lat[name] = statistics.median(lat) * 1e3
+        st = srv.stats()
+    finally:
+        srv.close()
+    check(st["timeouts"] == 0 and st["batched"]["stacked_dispatches"] > 0,
+          f"sharded serving: {st}")
+    log(f"sharded serving burst p50 ms {burst_lat}; stacked dispatches "
+        f"{st['batched']['stacked_dispatches']}")
+    return {"shards": SHARDS, "queries": report, "launches": launches,
+            "device_launches": device, "peak_bytes": peak,
+            "retries": retries, "serving_p50_ms": burst_lat}
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -1353,13 +1634,15 @@ def main(argv: list[str]) -> int:
     full = full_scale_phase(dev)
     matrix = matrix_phase(dev, full)
     serving = serving_phase(dev, full)
+    sharded_small_phase(dev)
+    sharded = sharded_phase(dev, full)
     for name, row in rows.items():
         row["launches"] = (full["launches"] | api_launches).get(name, 0)
         check(row["launches"] > 0, f"kernel {name} was not launched")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     full = {k: full[k] for k in ("launches", "peak_bytes", "queries")}
     print(json.dumps({"full_scale": full, "matrix": matrix,
-                      "serving": serving}), flush=True)
+                      "serving": serving, "sharded": sharded}), flush=True)
     print(json.dumps({"stacked": stacked}), flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(card, flush=True)

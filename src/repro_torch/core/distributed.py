@@ -1,0 +1,304 @@
+"""Distributed MapSQ: the MapReduce shuffle as exchanges between shards.
+
+The paper's Map phase redistributes (key, value) pairs so equal keys meet:
+a hash-partition + all-to-all exchange, then each shard runs the local
+sort-merge ReduceDuplicate. A mesh of several axes uses a hierarchical
+shuffle, one stage per axis (route along the outer axis first, then the
+inner), so traffic over the outer axis happens exactly once.
+
+Every shard lives on ONE device here, along an explicit leading shard
+axis: a sharded tensor is (lanes * n_shards, rows, ...), shards in flat
+row-major rank order over the mesh axes (lanes = 1 outside a stacked
+batch). The exchanges are `all_to_all` and `all_gather` below — one
+function each, reshapes and transposes along that axis — and everything
+else is per-shard work the callers run under `torch.func.vmap` over the
+axis, so each kernel call launches once for all shards.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.core import mr_join as mj
+from repro_torch.core.relation import Relation
+
+_FNV_OFFSET = 2166136261
+_FNV_PRIME = 16777619
+_U32 = 0xFFFFFFFF
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardMesh:
+    """Named mesh axes over the shards, outermost first (row-major): the
+    shard at coordinates (c_0, ..., c_{m-1}) has flat rank
+    sum_k c_k * prod(axis_sizes[k+1:])."""
+
+    axis_sizes: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    def __post_init__(self):
+        assert len(self.axis_sizes) == len(self.axis_names) >= 1
+        assert all(s >= 1 for s in self.axis_sizes), self.axis_sizes
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def n_shards(self) -> int:
+        return math.prod(self.axis_sizes)
+
+    def axis_size(self, axis: str) -> int:
+        return self.shape[axis]
+
+
+def make_mesh(axis_sizes, axis_names) -> ShardMesh:
+    return ShardMesh(tuple(int(s) for s in axis_sizes), tuple(axis_names))
+
+
+# -- the exchanges ------------------------------------------------------------
+
+
+def all_to_all(buf: torch.Tensor, mesh: ShardMesh, axis: str) -> torch.Tensor:
+    """Swap source and destination along one mesh axis: `buf` is
+    (lanes * n_shards, size, ...), slot j of each shard bound for the
+    shard whose coordinate on `axis` is j (the others equal); the result
+    holds in slot j what that shard sent here. Equal to
+    `jax.lax.all_to_all(x, axis, split_axis=0, concat_axis=0,
+    tiled=False)` on every shard."""
+    k = mesh.axis_names.index(axis)
+    m = len(mesh.axis_sizes)
+    lanes = buf.shape[0] // mesh.n_shards
+    x = buf.reshape(lanes, *mesh.axis_sizes, *buf.shape[1:])
+    return x.transpose(1 + k, 1 + m).reshape(buf.shape)
+
+
+def all_gather(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
+    """Every shard's rows on every shard: (lanes * n_shards, n, ...) ->
+    (lanes * n_shards, n_shards * n, ...), concatenated in flat rank
+    order (the reference gathers the innermost axis first)."""
+    s = mesh.n_shards
+    lanes = x.shape[0] // s
+    g = x.reshape(lanes, 1, s * x.shape[1], *x.shape[2:])
+    return g.expand(lanes, s, *g.shape[2:]).reshape(lanes * s, *g.shape[2:])
+
+
+# -- the hash and the buckets ---------------------------------------------------
+
+
+def _hash_cols(cols: torch.Tensor, key_idx) -> torch.Tensor:
+    """FNV-1a over columns `key_idx` of (..., n, c) int32 rows -> (..., n)
+    int64 holding the uint32 hash: each id is read as uint32 (two's
+    complement for negatives) and every product is masked to 32 bits,
+    so the result equals the reference's uint32 arithmetic."""
+    h = torch.full(cols.shape[:-1], _FNV_OFFSET, dtype=torch.int64,
+                   device=cols.device)
+    for c in key_idx:
+        x = cols[..., c].to(torch.int64) & _U32
+        h = ((h ^ x) * _FNV_PRIME) & _U32
+    return h
+
+
+def hash_keys(key_cols: torch.Tensor) -> torch.Tensor:
+    """FNV-1a over the key tuple -> uint32 values in int64 (tuple-equal =>
+    hash-equal); (..., n, k) int32 -> (..., n)."""
+    return _hash_cols(key_cols, range(key_cols.shape[-1]))
+
+
+def bucketize(cols: torch.Tensor, valid: torch.Tensor, part: torch.Tensor,
+              num_parts: int, bucket_capacity: int):
+    """Pack rows into per-destination buckets (static shapes).
+
+    `cols` is (n, c) or a batch (b, n, c) with `valid`, `part` (b, n).
+    Returns (buf (..., P, cap, c), bvalid (..., P, cap), overflowed (...),
+    max_load (...)). Rows beyond a destination's capacity are dropped and
+    flagged; rows keep their order within a bucket; `max_load` is the
+    EXACT largest per-destination row count (valid rows only, before the
+    capacity clamp), so an overflowed shuffle bucket can be regrown to the
+    needed size in one step. Dropped rows are written to one spare row
+    past the buckets, which is sliced off.
+    """
+    single = cols.dim() == 2
+    if single:
+        cols, valid, part = cols[None], valid[None], part[None]
+    b, n, c = cols.shape
+    dev = cols.device
+    part = torch.where(valid, part.to(torch.int32), num_parts)
+    order = torch.sort(part, dim=1, stable=True).indices
+    part_s = part.gather(1, order)
+    cols_s = cols.gather(1, order[..., None].expand(b, n, c))
+    valid_s = valid.gather(1, order)
+    probes = torch.arange(num_parts + 1, dtype=torch.int32, device=dev)
+    offsets = torch.searchsorted(
+        part_s, probes.expand(b, num_parts + 1).contiguous(), out_int32=True
+    )
+    start = offsets.gather(1, part_s.clamp(0, num_parts - 1).long())
+    pos = torch.arange(n, dtype=torch.int32, device=dev) - start
+    real = (part_s < num_parts) & valid_s
+    ok = real & (pos < bucket_capacity)
+    spare = num_parts * bucket_capacity
+    slot = torch.where(ok, part_s.long() * bucket_capacity + pos, spare)
+    buf = cols.new_zeros((b, spare + 1, c)).scatter(
+        1, slot[..., None].expand(b, n, c), cols_s.masked_fill(~ok[..., None], 0)
+    )
+    bvalid = valid.new_zeros((b, spare + 1)).scatter(1, slot, ok)
+    overflowed = (real & (pos >= bucket_capacity)).any(dim=1)
+    max_load = (offsets[:, 1:] - offsets[:, :-1]).amax(dim=1)
+    out = (
+        buf[:, :spare].reshape(b, num_parts, bucket_capacity, c),
+        bvalid[:, :spare].reshape(b, num_parts, bucket_capacity),
+        overflowed,
+        max_load,
+    )
+    return tuple(x[0] for x in out) if single else out
+
+
+def _shuffle_one_axis(cols, valid, dest_along_axis, mesh: ShardMesh,
+                      axis: str, bucket_capacity: int):
+    """Route rows to `dest_along_axis` coordinates over one mesh axis."""
+    size = mesh.axis_size(axis)
+    buf, bvalid, overflowed, max_load = bucketize(
+        cols, valid, dest_along_axis, size, bucket_capacity
+    )
+    buf = all_to_all(buf, mesh, axis)
+    bvalid = all_to_all(bvalid, mesh, axis)
+    b, n_cols = cols.shape[0], cols.shape[-1]
+    return (
+        buf.reshape(b, size * bucket_capacity, n_cols),
+        bvalid.reshape(b, size * bucket_capacity),
+        overflowed,
+        max_load,
+    )
+
+
+def shuffle_by_key(cols: torch.Tensor, valid: torch.Tensor,
+                   key_idx: list[int], mesh: ShardMesh,
+                   bucket_capacity: "int | tuple[int, ...]"):
+    """Hierarchical MapReduce shuffle: equal keys land on the same shard.
+
+    `cols` is (lanes * n_shards, n, c). The destination shard is
+    hash(key) % n_shards; stage k routes along mesh axis k (outermost
+    first) by the destination's coordinate on that axis, so traffic over
+    the outer axis happens exactly once. `key_idx` names the key COLUMNS
+    of `cols`: the destination is recomputed from the payload at each
+    stage instead of shipping a key copy.
+
+    `bucket_capacity` is PER STAGE (an int applies to every stage): stage
+    k's per-destination load is ~rows/size_k, so the outer stage of a
+    hierarchical mesh may need a larger bucket than the inner one.
+
+    Returns (cols, valid, overflowed, need): `overflowed` and `need` are
+    (lanes * n_shards, n_stages) — stage k's drop flag and each shard's
+    exact worst per-destination load at stage k — so an overflow regrows
+    ONLY the overflowing stage's bucket.
+    """
+    sizes = mesh.axis_sizes
+    total = mesh.n_shards
+    caps = (
+        (int(bucket_capacity),) * len(sizes)
+        if isinstance(bucket_capacity, int)
+        else tuple(bucket_capacity)
+    )
+    assert len(caps) == len(sizes), (caps, mesh.axis_names)
+    overflow: list[torch.Tensor] = []
+    need: list[torch.Tensor] = []
+    for k, axis in enumerate(mesh.axis_names):
+        dest = _hash_cols(cols, key_idx) % total
+        inner = math.prod(sizes[k + 1:])
+        coord = (dest // inner) % sizes[k]
+        cols, valid, ov, max_load = _shuffle_one_axis(
+            cols, valid, coord, mesh, axis, caps[k]
+        )
+        overflow.append(ov)
+        need.append(max_load.to(torch.int32))
+    return cols, valid, torch.stack(overflow, 1), torch.stack(need, 1)
+
+
+class ShuffleSlots:
+    """Shuffle staging: issue a shuffle AHEAD of the join that consumes it.
+
+    The distributed lowering walks the plan twice: a prestage pass calls
+    `issue()` for every join input that (a) needs a shuffle and (b) is
+    produced by a collective-free subtree (scans/filters/projections), then
+    the join chain calls `take()` at each consuming site. With every shard
+    on one device this changes only the order the work is enqueued in; it
+    keeps the reference's shuffle-slot order and accounting.
+    """
+
+    def __init__(self):
+        self._slots: dict = {}
+
+    def issue(self, slot, cols, valid, key_idx, mesh, caps) -> None:
+        assert slot not in self._slots, slot
+        self._slots[slot] = shuffle_by_key(cols, valid, key_idx, mesh, caps)
+
+    def ready(self, slot) -> bool:
+        return slot in self._slots
+
+    def take(self, slot):
+        """(cols, valid, overflowed, need) of a previously issued shuffle."""
+        return self._slots.pop(slot)
+
+
+def distributed_mr_join(
+    left: Relation,
+    right: Relation,
+    mesh: ShardMesh,
+    bucket_capacity: int,
+    join_capacity: int,
+):
+    """Shuffle both sides by join key, then local Algorithm 1 per shard.
+
+    Both relations are sharded, (lanes * n_shards, cap, c): each shard
+    holds an arbitrary horizontal slice of both and ends holding the join
+    results for its hash range. Returns (Relation, local_total,
+    overflowed-any-stage), each with the leading shard axis.
+    """
+    key_vars = mj.shared_vars(left, right)
+    if not key_vars:
+        raise ValueError("distributed cross join not supported")
+    l_idx = [left.schema.index(v) for v in key_vars]
+    r_idx = [right.schema.index(v) for v in key_vars]
+    l_cols, l_valid, ov_l, _ = shuffle_by_key(left.cols, left.valid, l_idx,
+                                              mesh, bucket_capacity)
+    r_cols, r_valid, ov_r, _ = shuffle_by_key(right.cols, right.valid, r_idx,
+                                              mesh, bucket_capacity)
+    l_rel = Relation(left.schema, l_cols, l_valid)
+    r_rel = Relation(right.schema, r_cols, r_valid)
+    out, total, ov_j = torch.func.vmap(
+        lambda l, r: mj.mr_join(l, r, join_capacity)
+    )(l_rel, r_rel)
+    return out, total, ov_l.any(1) | ov_r.any(1) | ov_j
+
+
+def make_distributed_join(mesh: ShardMesh, bucket_capacity: int,
+                          join_capacity: int,
+                          left_schema: tuple[str, ...],
+                          right_schema: tuple[str, ...]):
+    """A join of two flat row-sharded relations ((n_shards * cap, c), row
+    block k on shard k) -> (flat result, per-shard totals, per-shard
+    overflow flags). The reference's `make_distributed_join_fn` is the
+    same function before jit; torch runs it eagerly, so one name does."""
+    s = mesh.n_shards
+
+    def shard(rel: Relation, schema) -> Relation:
+        assert tuple(rel.schema) == tuple(schema), (rel.schema, schema)
+        return Relation(
+            rel.schema,
+            rel.cols.reshape(s, -1, rel.n_cols),
+            rel.valid.reshape(s, -1),
+        )
+
+    def fn(left: Relation, right: Relation):
+        out, total, ov = distributed_mr_join(
+            shard(left, left_schema), shard(right, right_schema), mesh,
+            bucket_capacity, join_capacity,
+        )
+        flat = Relation(
+            out.schema, out.cols.reshape(-1, out.n_cols), out.valid.reshape(-1)
+        )
+        return flat, total, ov
+
+    return fn

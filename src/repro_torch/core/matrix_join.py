@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core.mr_join import _expanded_cols, _map_phase
 from repro_torch.core.relation import UNBOUND, Relation, shared_vars
+from repro_torch.core.segments import cumsum_i32
 from repro_torch.kernels.spmm_join import ops as spmm_ops
 
 _I32 = torch.int32
@@ -67,7 +68,7 @@ def _expand_gather(counts, first, b, cl, pos_r, capacity: int):
     )
     if n_r:
         cl_sorted = cl[j_at]
-        pex = torch.cumsum(cl_sorted, dim=0, dtype=_I32) - cl_sorted
+        pex = cumsum_i32(cl_sorted) - cl_sorted
         before_key = pex[first.clamp(0, n_r - 1)]
     else:
         before_key = torch.zeros_like(first)

@@ -32,7 +32,12 @@ from repro_torch.core.relation import (
     Relation,
     shared_vars,
 )
-from repro_torch.core.segments import dense_rank_two_sided, first_row, lexsort
+from repro_torch.core.segments import (
+    cumsum_i32,
+    dense_rank_two_sided,
+    first_row,
+    lexsort,
+)
 from repro_torch.kernels.pair_expand import ops as pe_ops
 
 _I32 = torch.int32
@@ -75,7 +80,7 @@ def _sort_count_phase(l_key: torch.Tensor, r_key: torch.Tensor) -> JoinPlanArray
     lo = torch.searchsorted(rk_sorted, lk_sorted, out_int32=True)
     hi = torch.searchsorted(rk_sorted, lk_sorted, right=True, out_int32=True)
     counts = hi - lo
-    prefix = torch.cumsum(counts, dim=0, dtype=_I32)
+    prefix = cumsum_i32(counts)
     if counts.shape[0]:
         total = prefix[-1]
     else:
@@ -357,6 +362,6 @@ def slice_valid(rel: Relation, offset, limit) -> Relation:
     `offset`/`limit` may be 0-d device tensors, so one compiled program
     serves every (offset, limit) combination of the same plan shape.
     """
-    rank = torch.cumsum(rel.valid, dim=0, dtype=_I32)
+    rank = cumsum_i32(rel.valid)
     keep = rel.valid & (rank > offset) & (rank <= offset + limit)
     return Relation(rel.schema, rel.cols, keep)

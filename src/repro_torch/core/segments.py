@@ -7,6 +7,8 @@ from typing import Sequence
 
 import torch
 
+from repro_torch import kernels
+
 
 def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     """numpy.lexsort for 1-D tensors: the LAST key is the primary one.
@@ -37,7 +39,7 @@ def dense_rank_two_sided(left_keys: torch.Tensor, right_keys: torch.Tensor):
     sorted_keys = all_keys[order]
     new_group = (sorted_keys != torch.roll(sorted_keys, 1, dims=0)).any(dim=1)
     new_group = new_group | first_row(new_group)
-    rank_sorted = torch.cumsum(new_group, dim=0, dtype=torch.int32) - 1
+    rank_sorted = cumsum_i32(new_group) - 1
     ranks = torch.empty_like(rank_sorted).scatter(0, order, rank_sorted)
     return ranks[:n_l], ranks[n_l:]
 
@@ -70,14 +72,45 @@ def counts_to_segment_ids(counts: torch.Tensor, total: int):
     = len(counts) (one past the last segment) so callers can mask them.
     """
     counts = counts.to(torch.int32)
-    starts = torch.cumsum(counts, dim=0, dtype=torch.int32) - counts
+    starts = cumsum_i32(counts) - counts
     # scatter-add 1 at each segment start; starts past the end land in a
     # spare slot that is sliced off (the reference drops them)
     out = torch.zeros(total + 1, dtype=torch.int32, device=counts.device)
     out = out.scatter_add(
         0, starts.clamp(max=total).long(), (counts > 0).to(torch.int32)
     )
-    ids = torch.cumsum(out[:total], dim=0, dtype=torch.int32) - 1
+    ids = cumsum_i32(out[:total]) - 1
     t = torch.arange(total, dtype=torch.int32, device=counts.device)
     beyond = torch.full_like(ids, len(counts))
     return torch.where(t < counts.sum(dtype=torch.int32), ids, beyond)
+
+
+def _rows_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive int32 prefix sums along the last axis. A stack of rows is
+    summed as ONE flat scan minus each row's start: torch's scan of a 2-D
+    tensor along its last axis runs one block a row, which on the card
+    takes milliseconds for a few long rows. Both steps wrap modulo 2^32,
+    so each row equals its own int32 running sum, and the subtraction is
+    made in place: no buffer beyond the output."""
+    if x.dim() == 1:
+        return torch.cumsum(x, dim=0, dtype=torch.int32)
+    n = x.shape[-1]
+    if x.numel() == 0:
+        return torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    flat = torch.cumsum(x.reshape(-1), dim=0, dtype=torch.int32).view(-1, n)
+    ends = flat[:, -1]
+    starts = torch.cat([ends.new_zeros(1), ends[:-1]])
+    return flat.sub_(starts[:, None]).view(x.shape)
+
+
+@torch.library.custom_op("repro_torch::cumsum_i32", mutates_args=())
+def cumsum_i32(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of an int or bool tensor along its last axis,
+    as int32. Under torch.func.vmap its rule sums every lane's row in one
+    flat scan (see _rows_cumsum) instead of torch's per-row scan."""
+    return _rows_cumsum(x)
+
+
+@cumsum_i32.register_vmap
+def _cumsum_i32_vmap(info, in_dims, x):
+    return _rows_cumsum(kernels.lanes_first(x, in_dims[0], info.batch_size)), 0

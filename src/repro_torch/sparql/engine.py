@@ -59,12 +59,13 @@ import pathlib
 import threading
 import time
 from collections import OrderedDict
-from typing import NamedTuple
+from typing import ClassVar, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import distributed as dj
 from repro_torch.core import executor as ex
 from repro_torch.core import mr_join as mj
 from repro_torch.core import plan_ir
@@ -111,6 +112,13 @@ class ExecStats:
     # the store version this run's scans were staged at (-1 = not set):
     # the snapshot the results are consistent with
     store_version: int = -1
+    # sharded-execution data movement (zero on the single-device engine):
+    # shuffles the lowering emitted vs elided because the input was
+    # already hash-partitioned on the join key, and small-side broadcast
+    # (all_gather) joins
+    n_shuffles_emitted: int = 0
+    n_shuffles_elided: int = 0
+    n_broadcast_joins: int = 0
     # host wall seconds spent inside device dispatch + result sync for
     # THIS run (the engine-level `device_time_s` is the sum of these)
     device_time_s: float = 0.0
@@ -119,12 +127,16 @@ class ExecStats:
     # EXPLAIN ANALYZE actuals, in join-slot (evaluation) order — the same
     # order as plan.join_ests/join_caps. Captured from the exact totals
     # that ride back with every dispatch:
-    #   join_totals    matched rows per join slot
+    #   join_totals    global matched rows per join slot
+    #   join_worst     worst single shard per slot (fill pressure)
     #   join_overflows overflow->regrow events per slot (summed)
     #   join_caps      bucket capacity the final (successful) run used
+    #   shuffle_loads  worst per-shard shuffle rows per shuffle slot
     join_totals: tuple[int, ...] = ()
+    join_worst: tuple[int, ...] = ()
     join_overflows: tuple[int, ...] = ()
     join_caps: tuple[int, ...] = ()
+    shuffle_loads: tuple[int, ...] = ()
 
     def add(self, other: "ExecStats") -> None:
         self.n_joins += other.n_joins
@@ -140,6 +152,9 @@ class ExecStats:
         self.n_dispatches += other.n_dispatches
         self.batch_width = max(self.batch_width, other.batch_width)
         self.store_version = max(self.store_version, other.store_version)
+        self.n_shuffles_emitted += other.n_shuffles_emitted
+        self.n_shuffles_elided += other.n_shuffles_elided
+        self.n_broadcast_joins += other.n_broadcast_joins
         self.device_time_s += other.device_time_s
         if other.rows_emitted >= 0:
             self.rows_emitted = other.rows_emitted
@@ -148,7 +163,9 @@ class ExecStats:
         # events accumulate
         if other.join_totals:
             self.join_totals = other.join_totals
+            self.join_worst = other.join_worst
             self.join_caps = other.join_caps
+            self.shuffle_loads = other.shuffle_loads
         if other.join_overflows:
             mine = self.join_overflows
             if len(mine) == len(other.join_overflows):
@@ -539,6 +556,9 @@ class QueryEngine:
     # this Tracer so its request spans and the engine's dispatch spans
     # land in one trace tree.
     tracer: Tracer | None = None
+    # cross-shape padded stacking in run_batch (see _coalesce_groups); the
+    # sharded engine has none
+    pad_stacking: ClassVar[bool] = True
 
     def __post_init__(self):
         if self.join_backend not in (None, "mr", "matrix"):
@@ -715,13 +735,7 @@ class QueryEngine:
         Returns the number of signatures written.
         """
         entries = [
-            {
-                "shape": plan_ir.shape_to_jsonable(e.shape),
-                "join_caps": list(e.join_caps),
-                "widths": list(e.widths()),
-                "layouts": [[w, list(axes)] for w, axes in e.layouts()],
-            }
-            for e in self.plan_cache.entries()
+            self._entry_jsonable(e) for e in self.plan_cache.entries()
         ]
         pathlib.Path(path).write_text(
             json.dumps(
@@ -737,6 +751,16 @@ class QueryEngine:
             )
         )
         return len(entries)
+
+    def _entry_jsonable(self, e: PlanCacheEntry) -> dict:
+        """One warmup-file entry (the sharded engine appends its shuffle
+        bucket caps here — keep the base format in one place)."""
+        return {
+            "shape": plan_ir.shape_to_jsonable(e.shape),
+            "join_caps": list(e.join_caps),
+            "widths": list(e.widths()),
+            "layouts": [[w, list(axes)] for w, axes in e.layouts()],
+        }
 
     # -- public API --------------------------------------------------------
     def prepare(self, text: str, trace=None) -> PreparedQuery:
@@ -871,7 +895,7 @@ class QueryEngine:
                 continue
             groups.setdefault(ctxs[i].shape, []).append(i)
         merged: OrderedDict[plan_ir.PlanShape, tuple[list[int], int, int]]
-        if len(groups) > 1:
+        if self.pad_stacking and len(groups) > 1:
             merged = self._coalesce_groups(groups)
         else:
             merged = OrderedDict(
@@ -1120,9 +1144,7 @@ class QueryEngine:
                 bexec = entry.batched.get((width, inp.scan_axes))
                 if bexec is None:
                     tc0 = time.perf_counter()
-                    bexec = ex.compile_plan_batched(
-                        entry.compiled.plan, width, inp.scan_axes
-                    )
+                    bexec = self._build_batched(entry, width, inp.scan_axes)
                     events.append(("compile", tc0, time.perf_counter()))
                     entry.batched[(width, inp.scan_axes)] = bexec
                     stats.n_compiles += 1
@@ -1178,8 +1200,15 @@ class QueryEngine:
         stats.join_overflows = tuple(ovf_counts)
         self._emit_chunk_results(
             rel_b, chunk, ctxs, prepared, out, stats, defer,
-            totals_b.cpu().numpy(), traces=traces, events=events,
+            self._chunk_lane_totals(totals_b), traces=traces, events=events,
         )
+
+    def _chunk_lane_totals(self, totals_b) -> tuple[np.ndarray, np.ndarray]:
+        """Stacked totals -> per-lane (global, worst-shard) actuals, each
+        (width, n_joins). On the single-device engine they coincide; the
+        sharded override sums/maxes away its shard axis."""
+        t = totals_b.cpu().numpy()
+        return t, t
 
     def _emit_chunk_results(
         self,
@@ -1190,7 +1219,7 @@ class QueryEngine:
         out: list,
         stats: ExecStats,
         defer: bool,
-        lane_totals: np.ndarray,
+        lane_totals: tuple[np.ndarray, np.ndarray],
         traces: "list | None" = None,
         events: "list | None" = None,
     ) -> None:
@@ -1198,7 +1227,8 @@ class QueryEngine:
         every lane (lazy — the first decode consumer pays it), then
         per-lane row decode under each query's own variable names, either
         inline or left pending for the serving decode pool. `lane_totals`
-        holds each lane's exact join totals, (width, n_joins)."""
+        holds each lane's exact join totals and worst-shard totals, each
+        (width, n_joins)."""
         fetch = _SharedFetch(rel_b)
         schema = rel_b.schema
         if events:
@@ -1206,7 +1236,8 @@ class QueryEngine:
         for k, i in enumerate(chunk):
             names = tuple(ctxs[i].inverse[v] for v in schema)
             st = dataclasses.replace(stats)
-            st.join_totals = tuple(int(x) for x in lane_totals[k])
+            st.join_totals = tuple(int(x) for x in lane_totals[0][k])
+            st.join_worst = tuple(int(x) for x in lane_totals[1][k])
             # the chunk's dispatch wall is shared: attribute an equal share
             # to each lane so the engine-level device_time_s stays equal to
             # the sum over per-run ExecStats
@@ -1256,7 +1287,9 @@ class QueryEngine:
         )
 
     def _build_program(self, q: Query) -> _Program:
-        plan = optimizer.optimize(q, self.store)
+        plan = optimizer.optimize(
+            q, self.store, n_shards=getattr(self, "n_shards", 1)
+        )
         patterns = list(plan.all_patterns())
         opt_groups = tuple(
             plan_ir.GroupSpec(len(g), plan.opt_cross_flags[i])
@@ -1335,7 +1368,20 @@ class QueryEngine:
             has_slice=prog.has_slice,
             prune=True,
             join_backends=backends,
+            scan_parts=self._scan_parts(prog, schemas),
         )
+
+    def _scan_parts(
+        self,
+        prog: _Program,
+        schemas: tuple[tuple[str, ...], ...],
+    ) -> tuple[int, ...]:
+        """Per-scan partition column (index into the scan's schema; -1 =
+        unpartitioned). The single-device store is one shard, so nothing
+        is partitioned; the sharded engine overrides with the store's
+        subject-hash placement. Column positions are invariant under the
+        canonical rename, so the shape stays structurally hashable."""
+        return ()
 
     # -- execution ---------------------------------------------------------
     def _execute_program(
@@ -1357,6 +1403,7 @@ class QueryEngine:
         t0 = time.perf_counter()
         rel, totals = self._eval_shape_eager(shape, scans, prog, stats)
         stats.join_totals = tuple(totals)
+        stats.join_worst = stats.join_totals
         if trace is not None:
             trace.add_span("dispatch", t0, time.perf_counter(), eager=True)
         return rel
@@ -1541,9 +1588,16 @@ class QueryEngine:
             for s in scans
         )
         shape = self._shape_for(
-            prog, schemas, tuple(s.capacity for s in scans), rename
+            prog, schemas, self._scan_caps(scans), rename
         )
         return canon_scans, shape, inverse
+
+    def _scan_caps(
+        self, scans: tuple[Relation, ...]
+    ) -> tuple[int, ...]:
+        """Scan capacities as the PlanShape records them (the sharded
+        engine overrides this to report PER-SHARD buckets)."""
+        return tuple(s.capacity for s in scans)
 
     def _device_consts(
         self, prog: _Program
@@ -1554,6 +1608,11 @@ class QueryEngine:
             torch.from_numpy(prog.consts_f).to(self.device),
             self.store.numeric_values_device(self.device),
         )
+
+    def _caps_from_totals(self, totals: list[int]) -> tuple[int, ...]:
+        """Join bucket capacities from the calibration run's exact totals
+        (the sharded engine overrides this to size PER-SHARD buckets)."""
+        return tuple(plan_ir.bucket_capacity(t) for t in totals)
 
     def _execute_compiled(
         self, prog: _Program, stats: ExecStats, trace=None
@@ -1622,8 +1681,9 @@ class QueryEngine:
         stats.peak_join_bucket = max(
             stats.peak_join_bucket, eager_stats.peak_join_bucket
         )
-        join_caps = tuple(plan_ir.bucket_capacity(t) for t in totals)
+        join_caps = self._caps_from_totals(totals)
         stats.join_totals = tuple(totals)
+        stats.join_worst = stats.join_totals
         stats.join_caps = join_caps
         self._compile_entry(
             shape, join_caps, stats, trace=trace, precompile=True
@@ -1681,6 +1741,7 @@ class QueryEngine:
                 stats.join_totals = tuple(
                     int(t) for t in totals.cpu().numpy()
                 )
+                stats.join_worst = stats.join_totals
                 stats.join_caps = tuple(caps)
                 stats.join_overflows = tuple(ovf_counts)
                 return rel
@@ -1706,13 +1767,15 @@ class QueryEngine:
         stats: ExecStats,
         trace=None,
         precompile: bool = False,
+        shuffle_caps: "tuple[int, ...] | None" = None,
     ) -> PlanCacheEntry:
         """Build the program for (shape, join_caps) and cache it. The cold
         paths pass `precompile` to build the stacked layouts a previous
         process persisted too; a regrow does not (the next regrow would
-        discard them)."""
+        discard them). `shuffle_caps` are the sharded engine's shuffle
+        buckets (see _compile)."""
         t_compile = time.perf_counter()
-        compiled = ex.compile_plan(plan_ir.build_plan(shape, join_caps))
+        compiled = self._compile(shape, join_caps, shuffle_caps)
         stats.n_compiles += 1
         self.plan_cache.compiles += 1
         entry = PlanCacheEntry(
@@ -1729,6 +1792,14 @@ class QueryEngine:
             )
         return entry
 
+    def _compile(self, shape: plan_ir.PlanShape, join_caps: tuple[int, ...],
+                 shuffle_caps: "tuple[int, ...] | None"):
+        """The program for one (shape, join caps) point; the sharded
+        engine's also takes per-(site, stage) shuffle buckets, which one
+        device has none of."""
+        assert shuffle_caps is None, shuffle_caps
+        return ex.compile_plan(plan_ir.build_plan(shape, join_caps))
+
     def _precompile_batched(
         self, entry: PlanCacheEntry, stats: ExecStats
     ) -> None:
@@ -1744,11 +1815,14 @@ class QueryEngine:
                 or len(axes) != len(entry.shape.scan_schemas)
             ):
                 continue
-            entry.batched[(w, axes)] = ex.compile_plan_batched(
-                entry.compiled.plan, w, axes
-            )
+            entry.batched[(w, axes)] = self._build_batched(entry, w, axes)
             stats.n_compiles += 1
             self.plan_cache.compiles += 1
+
+    def _build_batched(self, entry: PlanCacheEntry, width: int, axes: tuple):
+        """The stacked program for an entry at one (width, scan axes)
+        layout (the sharded engine builds its lanes-x-shards form)."""
+        return ex.compile_plan_batched(entry.compiled.plan, width, axes)
 
     # -- explain -----------------------------------------------------------
     def _explain_program(
@@ -1915,6 +1989,15 @@ class QueryEngine:
                 labels.append("join")
         return labels
 
+    def _analyze_slot_extra(self, st: ExecStats, i: int) -> str:
+        """Per-slot suffix hook (the sharded engine adds worst-shard rows
+        here)."""
+        return ""
+
+    def _analyze_tail(self, st: ExecStats) -> list[str]:
+        """Run-summary hook after the per-slot lines."""
+        return []
+
     def _analyze_lines(
         self, pq: PreparedQuery, prog: _Program, shape: plan_ir.PlanShape
     ) -> list[str]:
@@ -1936,13 +2019,19 @@ class QueryEngine:
                 ]
                 if i < len(st.join_caps):
                     cap = st.join_caps[i]
+                    worst = (
+                        st.join_worst[i]
+                        if i < len(st.join_worst) else actual
+                    )
                     parts.append(f"cap={cap}")
                     parts.append(
-                        f"fill={actual / cap:.0%}" if cap else "fill=-"
+                        f"fill={worst / cap:.0%}" if cap else "fill=-"
                     )
                 if i < len(st.join_overflows) and st.join_overflows[i]:
                     parts.append(f"overflows={st.join_overflows[i]}")
-                lines.append(" ".join(parts))
+                lines.append(
+                    " ".join(parts) + self._analyze_slot_extra(st, i)
+                )
         elif st.n_joins:
             lines.append(
                 "  actuals not captured for the last run "
@@ -1950,6 +2039,7 @@ class QueryEngine:
             )
         else:
             lines.append("  no join nodes in this plan")
+        lines.extend(self._analyze_tail(st))
         rows = st.rows_emitted if st.rows_emitted >= 0 else "-"
         lines.append(
             f"  run: {st.n_dispatches} dispatch(es), "
@@ -1959,3 +2049,492 @@ class QueryEngine:
         )
         return lines
 
+
+
+class _ShardAcct(NamedTuple):
+    """A sharded dispatch's accounting on the host, shard (and lane) axes
+    leading, slot last: exact join totals, join overflow flags, exact
+    shuffle loads and shuffle overflow flags."""
+
+    totals: np.ndarray
+    flags: np.ndarray
+    needs: np.ndarray
+    sh_flags: np.ndarray
+
+    @classmethod
+    def fetch(cls, res) -> "_ShardAcct":
+        """Everything in ONE device->host copy: the dispatch's single
+        host sync."""
+        n_j = res.totals.shape[-1]
+        n_s = res.shuffle_needs.shape[-1]
+        packed = torch.cat(
+            [res.totals, res.overflows.to(torch.int32),
+             res.shuffle_needs, res.shuffle_flags.to(torch.int32)], -1,
+        ).cpu().numpy()
+        cut = np.cumsum([n_j, n_j, n_s])
+        totals, flags, needs, sh_flags = np.split(packed, cut, axis=-1)
+        return cls(totals, flags.astype(bool), needs, sh_flags.astype(bool))
+
+    def overflowed(self) -> bool:
+        return bool(self.flags.any() or self.sh_flags.any())
+
+    def worst(self) -> "tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]":
+        """Per slot over every shard (and lane): (max total, any flag, max
+        load, any shuffle flag)."""
+        def rows(x: np.ndarray) -> np.ndarray:
+            return x.reshape(int(np.prod(x.shape[:-1])), x.shape[-1])
+
+        return (rows(self.totals).max(0, initial=0),
+                rows(self.flags).any(0),
+                rows(self.needs).max(0, initial=0),
+                rows(self.sh_flags).any(0))
+
+
+@dataclasses.dataclass
+class ShardedQueryEngine(QueryEngine):
+    """Distributed MapSQ: the same engine over a subject-hash sharded store.
+
+    `store` must be a sparql.sharded_store.ShardedTripleStore whose shard
+    count equals the mesh size. Parsing, the algebra, the cost-based
+    optimizer, the plan IR and the plan/compile cache are the single-device
+    layers UNCHANGED; only three things differ:
+
+      * scans come up as flat per-shard partitions (upload-once per shard)
+        and the PlanShape's scan/join capacities are PER-SHARD buckets;
+      * the program is core/dist_executor.py's one sharded dispatch —
+        PARTITIONING-AWARE: a join input already hash-partitioned on the
+        join key (subject-variable scans start that way) joins map-side
+        with NO exchange, a small misaligned side is broadcast
+        (all_gather) instead of shuffling both, and only genuinely
+        misaligned sides pay the hash shuffle;
+      * overflow handling grows the worst SHARD's flagged bucket (join or
+        shuffle — per mesh-axis stage) from the exact numbers that ride
+        back with the dispatch, recompiles, and retries — the
+        single-device discipline per shard.
+
+    Every shard lives on the engine's one device, along an explicit shard
+    axis (core/distributed.py). `mesh=None` builds one axis `axis_name`
+    of `store.n_shards` shards (the reference sizes its default mesh by
+    the device count instead). Warm queries are exactly one dispatch and
+    zero compiles, same as the base engine.
+    """
+
+    mesh: "dj.ShardMesh | None" = None
+    axis_name: str = "shards"
+    # cross-shape padded stacking is single-device only: near-miss shapes
+    # stay per-shape groups here
+    pad_stacking: ClassVar[bool] = False
+
+    def __post_init__(self):
+        from repro_torch.sparql.sharded_store import ShardedTripleStore
+
+        if not isinstance(self.store, ShardedTripleStore):
+            raise TypeError(
+                "ShardedQueryEngine needs a ShardedTripleStore "
+                f"(got {type(self.store).__name__}); wrap a TripleStore "
+                "with sparql.sharded_store.shard_store(store, n_shards)"
+            )
+        if self.mesh is None:
+            self.mesh = dj.make_mesh((self.store.n_shards,), (self.axis_name,))
+        self.axis_names = tuple(self.mesh.axis_names)
+        self.n_shards = self.mesh.n_shards
+        if self.store.n_shards != self.n_shards:
+            raise ValueError(
+                f"store has {self.store.n_shards} shards but the mesh has "
+                f"{self.n_shards}"
+            )
+        if not self.compiled:
+            raise ValueError(
+                "sharded execution is compiled-only (compiled=True)"
+            )
+        super().__post_init__()
+        # shuffle bucket signatures persisted by a previous process (the
+        # sharded extension of the warmup file)
+        self._warm_shuffle: dict[plan_ir.PlanShape, tuple[int, ...]] = {}
+        if self.warmup_path is not None:
+            p = pathlib.Path(self.warmup_path)
+            if p.exists():
+                for e in json.loads(p.read_text())["entries"]:
+                    sh = tuple(int(c) for c in e.get("shuffle_caps", ()))
+                    if sh:
+                        shape = plan_ir.shape_from_jsonable(e["shape"])
+                        self._warm_shuffle[shape] = sh
+
+    # -- planning ----------------------------------------------------------
+    def _scan_caps(
+        self, scans: tuple[Relation, ...]
+    ) -> tuple[int, ...]:
+        """Capacities entering the PlanShape are the PER-SHARD row
+        buckets (the flat scan buffer holds n_shards equal blocks, so
+        its per-shard slice is capacity // n_shards)."""
+        return tuple(s.capacity // self.n_shards for s in scans)
+
+    def _scan_parts(
+        self,
+        prog: _Program,
+        schemas: tuple[tuple[str, ...], ...],
+    ) -> tuple[int, ...]:
+        """The store shards rows by subject hash — the SAME FNV-1a route
+        the shuffle uses — so a subject-VARIABLE scan arrives already
+        hash-partitioned on that column; the lowering elides every
+        shuffle this placement satisfies. A constant subject pins all
+        matches to one shard (not a hash placement of any variable)."""
+        return tuple(
+            schema.index(tp.s) if tp.s.startswith("?") else -1
+            for tp, schema in zip(prog.patterns, schemas)
+        )
+
+    def _caps_from_totals(self, totals: list[int]) -> tuple[int, ...]:
+        """Per-shard join buckets from the calibration run's exact GLOBAL
+        totals: the uniform-hash share, pow-2 bucketed. Key skew shows up
+        as an overflow on the first dispatch and regrows from the worst
+        shard's exact total."""
+        return tuple(
+            plan_ir.bucket_capacity(max(1, -(-int(t) // self.n_shards)))
+            for t in totals
+        )
+
+    # -- compiled path -----------------------------------------------------
+    def _compiled_cold(
+        self,
+        shape: plan_ir.PlanShape,
+        canon_scans: tuple[Relation, ...],
+        prog: _Program,
+        stats: ExecStats,
+        trace=None,
+    ) -> Relation:
+        """Cache miss: calibrate GLOBAL join totals with the eager
+        evaluator (the flat scan buffer is a valid single-device relation,
+        so the count passes are exact), size per-shard buckets at the
+        uniform-hash share, then DISPATCH once — unlike the base engine,
+        the cold query is served by the sharded program, so any hash-skew
+        overflow regrows now and warm queries stay at one dispatch, zero
+        compiles."""
+        stats.cache_misses += 1
+        self.plan_cache.misses += 1
+        join_caps = self._warm_caps.get(shape)
+        if join_caps is None or len(join_caps) != shape.n_joins():
+            eager_stats = ExecStats()
+            t0 = time.perf_counter()
+            _, totals = self._eval_shape_eager(
+                shape, canon_scans, prog, eager_stats
+            )
+            if trace is not None:
+                trace.add_span(
+                    "dispatch", t0, time.perf_counter(), calibration=True
+                )
+            stats.n_count_passes += eager_stats.n_count_passes
+            stats.n_dispatches += eager_stats.n_dispatches
+            stats.n_retries += eager_stats.n_retries
+            stats.device_time_s += eager_stats.device_time_s
+            join_caps = self._caps_from_totals(totals)
+        entry = self._compile_entry(
+            shape, join_caps, stats, trace=trace, precompile=True
+        )
+        return self._dispatch_entry(
+            shape, entry, canon_scans, *self._device_consts(prog), stats,
+            trace,
+        )
+
+    def _compile(self, shape, join_caps, shuffle_caps):
+        """The sharded program at (shape, join caps) and one shuffle bucket
+        per site per mesh-axis stage: the given ones, else the cached
+        entry's, else a previous process's, else the uniform estimate."""
+        from repro_torch.core import dist_executor as dx
+
+        plan = plan_ir.build_plan(shape, join_caps)
+        n_slots = dx.n_shuffle_slots(plan, len(self.axis_names))
+        if shuffle_caps is None:
+            prev = self.plan_cache.get(shape)
+            if prev is not None and len(
+                prev.compiled.shuffle_caps
+            ) == n_slots:
+                shuffle_caps = prev.compiled.shuffle_caps
+            else:
+                shuffle_caps = self._warm_shuffle.get(shape)
+        if shuffle_caps is None or len(shuffle_caps) != n_slots:
+            shuffle_caps = dx.initial_shuffle_caps(
+                plan, self.mesh.axis_sizes
+            )
+        return dx.compile_sharded_plan(plan, self.mesh, shuffle_caps)
+
+    def _build_batched(self, entry: PlanCacheEntry, width: int, axes: tuple):
+        from repro_torch.core import dist_executor as dx
+
+        return dx.compile_sharded_plan_batched(
+            entry.compiled.plan, self.mesh, entry.compiled.shuffle_caps,
+            width, axes,
+        )
+
+    def _regrow(
+        self,
+        shape: plan_ir.PlanShape,
+        entry: PlanCacheEntry,
+        acct: _ShardAcct,
+        ovf_counts: list[int],
+        stats: ExecStats,
+        trace=None,
+    ) -> PlanCacheEntry:
+        """A bucket overflowed on some shard: grow the flagged join and
+        shuffle buckets to the worst shard's exact numbers and recompile."""
+        stats.n_retries += 1
+        totals, flags, needs, sh_flags = acct.worst()
+        for j, f in enumerate(flags):
+            ovf_counts[j] += int(f)
+        new_caps = plan_ir.grow_join_caps(
+            entry.join_caps, [int(t) for t in totals], list(flags)
+        )
+        new_shuffle = plan_ir.grow_join_caps(
+            entry.compiled.shuffle_caps, [int(n) for n in needs],
+            list(sh_flags),
+        )
+        if max(new_caps + new_shuffle) > self.max_capacity:
+            raise MemoryError(f"join result exceeds {self.max_capacity}")
+        return self._compile_entry(
+            shape, new_caps, stats, trace=trace, shuffle_caps=new_shuffle
+        )
+
+    def _dispatch_entry(
+        self,
+        shape: plan_ir.PlanShape,
+        entry: PlanCacheEntry,
+        canon_scans: tuple[Relation, ...],
+        consts_i: torch.Tensor,
+        consts_f: torch.Tensor,
+        num_vals: torch.Tensor,
+        stats: ExecStats,
+        trace=None,
+    ) -> Relation:
+        ovf_counts = [0] * shape.n_joins()
+        while True:
+            stats.n_dispatches += 1
+            self._count_shuffles(entry, stats)
+            t0 = time.perf_counter()
+            res = entry.compiled(canon_scans, consts_i, consts_f, num_vals)
+            caps = entry.compiled.plan.join_caps
+            stats.peak_capacity = max(
+                stats.peak_capacity, entry.compiled.plan.max_capacity()
+            )
+            stats.peak_join_bucket = max(
+                stats.peak_join_bucket, max(caps) if caps else 0
+            )
+            acct = _ShardAcct.fetch(res)
+            t1 = self._device_tick(stats, t0)
+            if trace is not None:
+                trace.add_span("dispatch", t0, t1, n_shards=self.n_shards)
+            if not acct.overflowed():
+                # totals are (n_shards, n_joins): the analyze view wants
+                # the global rows AND the worst shard (fill pressure is a
+                # per-shard property under hash skew)
+                stats.join_totals = tuple(
+                    int(x) for x in acct.totals.sum(axis=0)
+                )
+                stats.join_worst = tuple(
+                    int(x) for x in acct.totals.max(axis=0, initial=0)
+                )
+                stats.join_caps = tuple(caps)
+                stats.join_overflows = tuple(ovf_counts)
+                stats.shuffle_loads = tuple(int(x) for x in acct.worst()[2])
+                return res.relation
+            entry = self._regrow(shape, entry, acct, ovf_counts, stats, trace)
+
+    def _count_shuffles(self, entry: PlanCacheEntry, stats: ExecStats):
+        """Fold the program's static data-movement choices into the run's
+        stats, once per sharded dispatch."""
+        from repro_torch.core import dist_executor as dx
+
+        cnt = dx.strategy_counts(entry.compiled.strategies)
+        stats.n_shuffles_emitted += cnt["emitted"]
+        stats.n_shuffles_elided += cnt["elided"]
+        stats.n_broadcast_joins += cnt["broadcast"]
+
+    # -- batching ----------------------------------------------------------
+    def _stage_chunk(
+        self, shape: plan_ir.PlanShape, lanes: list[_BatchCtx], n: int
+    ) -> _ChunkInputs:
+        """The device inputs of one stacked sharded dispatch: per scan
+        position, an identical pattern across lanes ships its flat
+        (n_shards * cap) buffer once (axis None); else a stacked (width,
+        n_shards * cap) buffer (axis 0)."""
+        scans: list[Relation] = []
+        axes: list[int | None] = []
+        with self.store.snapshot_lock():  # one store version per chunk
+            for j, schema in enumerate(shape.scan_schemas):
+                tps = tuple(c.prog.patterns[j] for c in lanes)
+                if len({self.store._scan_key(tp) for tp in tps}) == 1:
+                    rel = self.store.match_pattern_device(tps[0], self.device)
+                    scans.append(Relation(schema, rel.cols, rel.valid))
+                    axes.append(None)
+                else:
+                    scans.append(Relation(
+                        schema,
+                        *self.store.stacked_scan_device(tps, self.device),
+                    ))
+                    axes.append(0)
+            version = self.store.version
+        return _ChunkInputs(
+            tuple(scans),
+            tuple(axes),
+            torch.from_numpy(
+                np.stack([c.prog.consts_i for c in lanes])
+            ).to(self.device),
+            torch.from_numpy(
+                np.stack([c.prog.consts_f for c in lanes])
+            ).to(self.device),
+            self.store.numeric_values_device(self.device),
+            torch.from_numpy(np.arange(len(lanes)) < n).to(self.device),
+            version,
+        )
+
+    def _run_chunk_stacked(
+        self,
+        shape: plan_ir.PlanShape,
+        chunk: list[int],
+        ctxs: list["_BatchCtx | None"],
+        prepared: list[PreparedQuery],
+        out: list,
+        group: BatchGroupStats,
+        defer: bool = False,
+        traces: "list | None" = None,
+    ) -> None:
+        """ONE stacked sharded dispatch (lanes x shards) for a chunk of
+        warm same-shape queries — the distributed mirror of the base
+        engine's stacked path. Grouping, chunking, deferred decode and
+        the MemoryError fallback are the inherited run_batch machinery
+        (cross-shape padding is off here, so `shape` is always every
+        lane's natural signature)."""
+        entry = self.plan_cache.get(shape)
+        n = len(chunk)
+        width = plan_ir.bucket_width(n, MAX_BATCH_WIDTH)
+        lanes = [ctxs[i] for i in chunk] + [ctxs[chunk[0]]] * (width - n)
+        inp = self._stage_chunk(shape, lanes, n)
+        group.n_broadcast_scans += sum(1 for a in inp.scan_axes if a is None)
+        stats = ExecStats(
+            n_joins=shape.n_joins(),
+            cache_hits=1,
+            batch_width=width,
+            store_version=inp.store_version,
+        )
+        self.plan_cache.hits += n
+        events: list[tuple[str, float, float]] = []
+        ovf_counts = [0] * shape.n_joins()
+        try:
+            while True:
+                bexec = entry.batched.get((width, inp.scan_axes))
+                if bexec is None:
+                    tc0 = time.perf_counter()
+                    bexec = self._build_batched(entry, width, inp.scan_axes)
+                    events.append(("compile", tc0, time.perf_counter()))
+                    entry.batched[(width, inp.scan_axes)] = bexec
+                    stats.n_compiles += 1
+                    self.plan_cache.compiles += 1
+                stats.n_dispatches += 1
+                self._count_shuffles(entry, stats)
+                t0 = time.perf_counter()
+                res = bexec(
+                    inp.scans, inp.consts_i, inp.consts_f, inp.num_vals,
+                    inp.active,
+                )
+                acct = _ShardAcct.fetch(res)  # every (lane, shard) pair
+                events.append(("dispatch", t0, self._device_tick(stats, t0)))
+                if not acct.overflowed():
+                    break
+                entry = self._regrow(shape, entry, acct, ovf_counts, stats)
+        finally:
+            group.n_dispatches += stats.n_dispatches
+            group.n_compiles += stats.n_compiles
+        group.widths = group.widths + (width,)
+        self.stacked_dispatches += stats.n_dispatches
+        self.batch_width_hist[width] = (
+            self.batch_width_hist.get(width, 0) + stats.n_dispatches
+        )
+        self.stacked_queries += n
+        caps = entry.compiled.plan.join_caps
+        stats.peak_join_bucket = max(caps) if caps else 0
+        stats.peak_capacity = entry.compiled.plan.max_capacity()
+        stats.join_caps = tuple(caps)
+        stats.join_overflows = tuple(ovf_counts)
+        stats.shuffle_loads = tuple(int(x) for x in acct.worst()[2])
+        # (width, n_shards, n_joins): per-lane global rows sum over
+        # shards, fill pressure is the worst shard
+        lane_totals = (acct.totals.sum(axis=1),
+                       acct.totals.max(axis=1, initial=0))
+        self._emit_chunk_results(
+            res.relation, chunk, ctxs, prepared, out, stats, defer,
+            lane_totals, traces=traces, events=events,
+        )
+
+    # -- persistence -------------------------------------------------------
+    def _entry_jsonable(self, e: PlanCacheEntry) -> dict:
+        """Base signature plus the entry's shuffle bucket caps, so a
+        restarted sharded server compiles warm shapes with zero
+        shuffle-overflow retries too."""
+        d = super()._entry_jsonable(e)
+        d["shuffle_caps"] = list(e.compiled.shuffle_caps)
+        return d
+
+    # -- explain -----------------------------------------------------------
+    def _analyze_slot_extra(self, st: ExecStats, i: int) -> str:
+        if i < len(st.join_worst):
+            return f" worst_shard_rows={st.join_worst[i]}"
+        return ""
+
+    def _analyze_tail(self, st: ExecStats) -> list[str]:
+        lines = []
+        if st.shuffle_loads:
+            lines.append(
+                "  shuffle slots worst-shard rows="
+                f"{list(st.shuffle_loads)}"
+            )
+        lines.append(
+            f"  data movement: {st.n_shuffles_emitted} shuffle(s) "
+            f"emitted, {st.n_shuffles_elided} elided, "
+            f"{st.n_broadcast_joins} broadcast join(s)"
+        )
+        return lines
+
+    def _explain_program(
+        self, pq: PreparedQuery, prog: _Program, analyze: bool = False
+    ) -> str:
+        from repro_torch.core import dist_executor as dx
+
+        lines = [super()._explain_program(pq, prog, analyze=analyze)]
+        lines.append(
+            f"sharded: {self.n_shards} shard(s), mesh axes "
+            f"{list(self.axis_names)}, subject-hash partitioned scans"
+        )
+        schemas: list[tuple[str, ...]] = []
+        caps: list[int] = []
+        for i, tp in enumerate(prog.patterns):
+            counts = self.store.per_shard_counts(tp)
+            schema, _ = self.store.pattern_scan_info(tp)
+            schemas.append(schema)
+            caps.append(self.store.scan_capacity(tp))
+            lines.append(
+                f"  scan[{i}] per-shard rows={counts} "
+                f"per-shard bucket={caps[-1]}"
+            )
+        rename = plan_ir.canonical_renaming(tuple(schemas))
+        shape = self._shape_for(prog, tuple(schemas), tuple(caps), rename)
+        entry = self.plan_cache.get(shape)
+        if entry is not None:
+            lines.append(
+                f"  per-shard join buckets={entry.join_caps}, "
+                f"shuffle buckets={entry.compiled.shuffle_caps}"
+            )
+            strategies = entry.compiled.strategies
+        else:
+            # not compiled yet: derive the strategies the lowering WILL
+            # choose (pure static analysis over the would-be plan)
+            plan = plan_ir.build_plan(
+                shape, (plan_ir.MIN_BUCKET,) * shape.n_joins()
+            )
+            strategies = dx.analyze_plan(plan, self.n_shards)
+        for i, st in enumerate(strategies):
+            lines.append(f"  shuffle[{i}] {st.op}: {dx.format_strategy(st)}")
+        cnt = dx.strategy_counts(strategies)
+        lines.append(
+            f"  shuffles: {cnt['emitted']} emitted, {cnt['elided']} "
+            f"elided, {cnt['broadcast']} broadcast join(s)"
+        )
+        return "\n".join(lines)

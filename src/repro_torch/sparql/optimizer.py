@@ -107,12 +107,16 @@ class _State:
 
     `schema` is the relation's column order (the physical plan derives
     each join key from it, so the optimizer can mirror the lowering's key
-    exactly)."""
+    exactly); `part` is the hash-partitioning columns under a sharded
+    store (None = unknown placement) — the host-side mirror of
+    core/dist_executor's Partitioning property, driving the shuffle-cost
+    term of the join ordering."""
 
     card: float
     dv: dict[str, float]
     skew: dict[str, float] = dataclasses.field(default_factory=dict)
     schema: tuple[str, ...] = ()
+    part: "tuple[str, ...] | None" = None
 
 
 def _filter_selectivity(expr: algebra.FilterExpr, dv: dict[str, float]) -> float:
@@ -164,9 +168,11 @@ def _pattern_state(
             card *= _filter_selectivity(expr, dv)
     dv = {v: max(1.0, min(d, card)) for v, d in dv.items()}
     # scan-order column schema (s,p,o first appearance — the store's scan
-    # column order)
+    # column order); a variable subject means the sharded store hands this
+    # scan out already subject-hash partitioned
     schema = tuple(dict.fromkeys(tp.variables()))
-    return _State(card, dv, skew, schema)
+    part = (tp.s,) if tp.s.startswith("?") else None
+    return _State(card, dv, skew, schema, part)
 
 
 def _join_states(a: _State, b: _State) -> tuple[_State, bool]:
@@ -211,21 +217,65 @@ def _choose_backend(a: _State, b: _State, est: float) -> str:
     return "matrix" if sigma * skew >= MATRIX_THRESHOLD else "mr"
 
 
+def _dist_step(
+    a: _State, b: _State, n_shards: int
+) -> tuple[float, "tuple[str, ...] | None"]:
+    """Shuffle cost of the sharded join a ⋈ b: (estimated rows moved
+    between shards, output partitioning). Mirrors the strategy rules of
+    core/dist_executor.analyze_plan on the estimates: an aligned side
+    moves nothing; a misaligned side shuffles card × (n-1)/n rows; a
+    small doubly-misaligned right side broadcasts (card × (n-1)) and the
+    left partitioning survives. Zero at n_shards == 1, so single-device
+    join ordering is unchanged."""
+    key = tuple(v for v in a.schema if v in set(b.schema))
+    if n_shards <= 1:
+        return 0.0, (key or a.part)
+    if not key:  # cross join: the right side is replicated
+        return b.card * (n_shards - 1), a.part
+    left_ok = a.part == key
+    right_ok = b.part == key
+    if left_ok and right_ok:
+        return 0.0, key
+    if (
+        not left_ok
+        and not right_ok
+        and b.card * n_shards <= _BROADCAST_ROWS
+    ):
+        return b.card * (n_shards - 1), a.part
+    frac = (n_shards - 1) / n_shards
+    moved = (0.0 if left_ok else a.card) + (0.0 if right_ok else b.card)
+    return moved * frac, key
+
+
+# mirrors core/dist_executor.DEFAULT_BROADCAST_ROWS (kept as a literal so
+# the optimizer stays importable without the executor stack; the actual
+# broadcast decision is re-made from real capacities at lowering time —
+# this copy only shapes the cost model)
+_BROADCAST_ROWS = 2048
+
+
 def _greedy_from(
-    states: list[_State], start: int
-) -> tuple[list[int], list[bool], list[float], list[str], _State]:
+    states: list[_State], start: int, n_shards: int = 1
+) -> tuple[
+    list[int], list[bool], list[float], list[str], _State, list[float]
+]:
     """Left-deep greedy order from a fixed head, minimising each next
-    join's estimated output. Cross joins go last, smallest first."""
+    join's estimated output PLUS its shuffle cost (rows moved between
+    shards — zero at n_shards == 1, so single-device ordering is
+    bit-identical). Cross joins go last, smallest first. Also returns the
+    per-step costs (est + moved) the start-selection compares."""
     order = [start]
     flags: list[bool] = []
     ests: list[float] = []
+    costs: list[float] = []
     backends: list[str] = []
     cur = states[start]
     remaining = [i for i in range(len(states)) if i != start]
 
     def step_cost(i: int) -> float:
         new, _ = _join_states(cur, states[i])
-        return new.card
+        moved, _ = _dist_step(cur, states[i], n_shards)
+        return new.card + moved
 
     while remaining:
         connected = [
@@ -236,13 +286,16 @@ def _greedy_from(
         else:  # disconnected component: cheapest pattern first
             nxt = min(remaining, key=lambda i: (states[i].card, i))
         new, shared = _join_states(cur, states[nxt])
+        moved, out_part = _dist_step(cur, states[nxt], n_shards)
+        new.part = out_part
         order.append(nxt)
         flags.append(not shared)
         ests.append(new.card)
+        costs.append(new.card + moved)
         backends.append(_choose_backend(cur, states[nxt], new.card))
         cur = new
         remaining.remove(nxt)
-    return order, flags, ests, backends, cur
+    return order, flags, ests, backends, cur, costs
 
 
 # starts tried exhaustively up to this many patterns (n × O(n²) greedy
@@ -256,34 +309,47 @@ def order_patterns(
     stats: StoreStatistics,
     lookup,
     filters: Sequence[algebra.FilterExpr] = (),
-) -> tuple[list[int], tuple[bool, ...], list[float], list[str], _State]:
+    n_shards: int = 1,
+) -> tuple[
+    list[int], tuple[bool, ...], list[float], list[str], _State,
+    list[float],
+]:
     """Statistics-backed join ordering for one BGP.
 
     Tries every pattern as the chain head and keeps the greedy order with
-    the smallest (max, sum) of estimated intermediate cardinalities.
-    Deterministic for a given store, so structurally-equal queries keep
-    hashing to one PlanShape. `filters` (the query's FILTER conjuncts)
-    sharpen the leaf estimates: a conjunct a single pattern binds is
-    treated as a scan-stage mask, scaling that leaf by its selectivity.
+    the smallest (max, sum) of per-step COSTS — estimated intermediate
+    cardinality plus, when `n_shards` > 1, the shuffle term (rows moved ×
+    (n_shards-1)/n_shards), which steers toward alignment-preserving
+    orders (a subject-star chain keeps every join map-side). At
+    n_shards == 1 cost == cardinality, so single-device plans are
+    unchanged. Deterministic for a given store, so structurally-equal
+    queries keep hashing to one PlanShape. `filters` (the query's FILTER
+    conjuncts) sharpen the leaf estimates: a conjunct a single pattern
+    binds is treated as a scan-stage mask, scaling that leaf by its
+    selectivity. Also returns the per-step shuffle cost (cost − est) for
+    the trace.
     """
     states = [
         _pattern_state(tp, leaf_card, stats, lookup, filters)
         for tp in patterns
     ]
     if len(patterns) == 1:
-        return [0], (), [], [], states[0]
+        return [0], (), [], [], states[0], []
     if len(patterns) <= _MAX_EXHAUSTIVE_STARTS:
         starts = range(len(patterns))
     else:
         starts = [min(range(len(patterns)), key=lambda i: states[i].card)]
     best = None
     for s in starts:
-        order, flags, ests, backends, final = _greedy_from(states, s)
-        key = (max(ests), sum(ests), tuple(order))
+        order, flags, ests, backends, final, costs = _greedy_from(
+            states, s, n_shards
+        )
+        key = (max(costs), sum(costs), tuple(order))
         if best is None or key < best[0]:
-            best = (key, order, flags, ests, backends, final)
-    _, order, flags, ests, backends, final = best
-    return order, tuple(flags), ests, backends, final
+            best = (key, order, flags, ests, backends, final, costs)
+    _, order, flags, ests, backends, final, costs = best
+    moved = [c - e for c, e in zip(costs, ests)]
+    return order, tuple(flags), ests, backends, final, moved
 
 
 # -- the pass pipeline --------------------------------------------------------
@@ -303,13 +369,14 @@ def _order_bgp(
     label: str,
     trace: list[str],
     filters: Sequence[algebra.FilterExpr] = (),
+    n_shards: int = 1,
 ) -> tuple[
     list[TriplePattern], tuple[bool, ...], list[float], list[str], _State
 ]:
     """One BGP through the join_order pass."""
-    order, flags, ests, backends, final = order_patterns(
+    order, flags, ests, backends, final, moved = order_patterns(
         patterns, store.estimate_cardinality, store.statistics,
-        store.dictionary.lookup, filters,
+        store.dictionary.lookup, filters, n_shards,
     )
     ordered = [patterns[i] for i in order]
     trace.append(
@@ -323,6 +390,18 @@ def _order_bgp(
             else ""
         )
     )
+    if n_shards > 1 and moved:
+        trace.append(
+            f"shuffle_cost[{label}]: est rows moved per join "
+            f"({n_shards} shards): ["
+            + ", ".join(_fmt_est(m) for m in moved)
+            + "]"
+            + (
+                ""
+                if any(m > 0 for m in moved)
+                else "  (all joins map-side)"
+            )
+        )
     if "matrix" in backends:
         picked = [i for i, b in enumerate(backends) if b == "matrix"]
         trace.append(
@@ -490,8 +569,11 @@ def _prune_trace(
         )
 
 
-def optimize(q, store: TripleStore) -> OptimizedProgram:
-    """Run the pass pipeline over a parsed query."""
+def optimize(q, store: TripleStore, n_shards: int = 1) -> OptimizedProgram:
+    """Run the pass pipeline over a parsed query. `n_shards` > 1 (the
+    sharded engine) adds the per-step shuffle-cost term to the join
+    ordering — movement between shards the plan can avoid by keeping joins
+    on already-aligned keys."""
     trace: list[str] = []
     required_vars = {v for tp in q.patterns for v in tp.variables()}
     _validate_optionals(q, required_vars)
@@ -502,7 +584,7 @@ def optimize(q, store: TripleStore) -> OptimizedProgram:
     req_state: _State | None = None
     if q.patterns:
         required, cross_flags, ests, bks, req_state = _order_bgp(
-            q.patterns, store, "required", trace, est_filters
+            q.patterns, store, "required", trace, est_filters, n_shards
         )
         join_ests.extend(ests)
         join_backends.extend(bks)
@@ -513,7 +595,8 @@ def optimize(q, store: TripleStore) -> OptimizedProgram:
     opt_cross_flags: list[tuple[bool, ...]] = []
     for gi, group in enumerate(q.optionals):
         ordered, flags, ests, bks, g_state = _order_bgp(
-            list(group), store, f"optional[{gi}]", trace, est_filters
+            list(group), store, f"optional[{gi}]", trace, est_filters,
+            n_shards,
         )
         opt_groups.append(tuple(ordered))
         opt_cross_flags.append(flags)
@@ -527,7 +610,8 @@ def optimize(q, store: TripleStore) -> OptimizedProgram:
     branch_cross_flags: list[tuple[bool, ...]] = []
     for bi, branch in enumerate(q.unions):
         ordered, flags, ests, bks, b_state = _order_bgp(
-            list(branch), store, f"union[{bi}]", trace, est_filters
+            list(branch), store, f"union[{bi}]", trace, est_filters,
+            n_shards,
         )
         branches.append(tuple(ordered))
         branch_cross_flags.append(flags)

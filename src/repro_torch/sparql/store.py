@@ -149,6 +149,43 @@ class StoreStatistics:
             predicates=preds,
         )
 
+    @classmethod
+    def merge(cls, parts: "list[StoreStatistics]") -> "StoreStatistics":
+        """Aggregate per-shard catalogs into one store-wide catalog.
+
+        Exact for subject-hash partitioned shards on every additive count
+        (triple counts sum; subject sets are disjoint across shards, so
+        distinct-subject counts sum too). Distinct OBJECT counts can
+        overlap between shards, so the merge takes the per-shard maximum —
+        a lower bound, which only makes the optimizer's System-R join
+        selectivities more conservative (never unsound).
+        """
+        preds: dict[int, PredicateStats] = {}
+        for part in parts:
+            for pid, ps in part.predicates.items():
+                old = preds.get(pid)
+                if old is None:
+                    preds[pid] = ps
+                else:
+                    preds[pid] = PredicateStats(
+                        count=old.count + ps.count,
+                        n_subjects=old.n_subjects + ps.n_subjects,
+                        n_objects=max(old.n_objects, ps.n_objects),
+                        # subject degrees are exact under subject-hash
+                        # partitioning (a subject lives on one shard);
+                        # object degrees merge as a lower bound, like the
+                        # distinct-object counts above
+                        max_s_degree=max(old.max_s_degree, ps.max_s_degree),
+                        max_o_degree=max(old.max_o_degree, ps.max_o_degree),
+                    )
+        return cls(
+            n_triples=sum(p.n_triples for p in parts),
+            n_subjects=sum(p.n_subjects for p in parts),
+            n_objects=max((p.n_objects for p in parts), default=0),
+            n_predicates=len(preds),
+            predicates=preds,
+        )
+
     def _bound_ids(self, tp: TriplePattern, lookup) -> dict[str, int] | None:
         """Term ids of the pattern's constants; None if any is unknown
         (an unknown constant can never match — cardinality 0)."""

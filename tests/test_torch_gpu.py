@@ -643,3 +643,123 @@ def test_decode_on_another_thread_waits_for_a_side_stream_dispatch(cuda):
         t.join()
     want = cpu.prepare(text).run().rows
     assert all(rows == want for rows in got)
+
+
+# ------------------------------------------------ the sharded engine
+
+SHARD_MESHES = {"1": (1, None), "4": (4, None), "8": (8, None),
+                "2x2": (4, ((2, 2), ("pod", "data")))}
+
+
+def _sharded_pair(cuda, config, **kw):
+    """The sharded engine on the card and on the CPU, over one LUBM
+    scale-1 store each."""
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.sparql import lubm
+    from repro_torch.sparql.engine import ShardedQueryEngine
+    from repro_torch.sparql.sharded_store import shard_store
+
+    n, mesh = SHARD_MESHES[config]
+    base = lubm.generate(scale=1, join_shapes=True, skew_shapes=True)
+    return [
+        ShardedQueryEngine(shard_store(base, n), device=d,
+                           mesh=make_mesh(*mesh) if mesh else None, **kw)
+        for d in (cuda, "cpu")
+    ]
+
+
+@pytest.mark.parametrize("backend", [None, "matrix"])
+@pytest.mark.parametrize("config", list(SHARD_MESHES))
+def test_sharded_engine_on_the_card_equals_the_cpu(cuda, config, backend):
+    """Every query's result arrays, join totals and shuffle loads equal
+    the CPU port's, cold and warm; warm runs are 1 dispatch, 0 compiles,
+    and the warm program makes no host sync."""
+    from repro_torch.sparql import lubm
+    from repro_torch.sparql.parser import parse
+
+    engines = _sharded_pair(cuda, config, join_backend=backend)
+    queries = {**lubm.QUERIES, **lubm.OPERATOR_QUERIES, **lubm.S_QUERIES,
+               **lubm.J_QUERIES}
+    for text in queries.values():
+        q = parse(text)
+        for _ in range(2):
+            (rc, sc), (rh, sh) = (e.execute(q) for e in engines)
+            assert torch.equal(rc.cols.cpu(), rh.cols)
+            assert torch.equal(rc.valid.cpu(), rh.valid)
+            assert sc.join_totals == sh.join_totals
+            assert sc.join_worst == sh.join_worst
+            assert sc.shuffle_loads == sh.shuffle_loads
+        assert sc.n_dispatches == 1 and sc.n_compiles == 0
+        eng = engines[0]
+        pq = eng.prepare(text)
+        canon, shape, _ = eng._canonicalize(pq._program)
+        consts = eng._device_consts(pq._program)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = eng.plan_cache.get(shape).compiled(canon, *consts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert not bool(res.overflows.any())
+
+
+@pytest.mark.parametrize("config", ["4", "2x2"])
+def test_sharded_run_batch_and_retry_on_the_card_equal_the_cpu(cuda, config):
+    """A stacked FILTER-constant group (one dispatch) and a program forced
+    to the smallest join and shuffle buckets (retried): the card's rows
+    equal the CPU's in order."""
+    from repro_torch.sparql import lubm
+    from repro_torch.sparql.engine import ExecStats
+
+    engines = _sharded_pair(cuda, config)
+    q4 = lubm.QUERIES["Q4"]
+    texts = [q4.replace("Dept0_0", f"Dept0_{k}") for k in range(6)]
+    results = []
+    for eng in engines:
+        pqs = [eng.prepare(t) for t in texts]
+        pqs[0].run()
+        eng.run_batch(pqs)
+        out = eng.run_batch(pqs)
+        assert eng.last_batch[0].widths == (8,)
+        assert eng.last_batch[0].n_dispatches == 1
+        pq = eng.prepare(lubm.QUERIES["Q9"])
+        pq.run()
+        shape = eng._batch_context(pq._program).shape
+        entry = eng.plan_cache.get(shape)
+        eng._compile_entry(
+            shape, (8,) * len(entry.join_caps), ExecStats(),
+            shuffle_caps=(8,) * len(entry.compiled.shuffle_caps),
+        )
+        retried = pq.run()
+        assert retried.stats.n_retries >= 1
+        results.append([r.rows for r in out] + [retried.rows])
+    assert results[0] == results[1]
+
+
+@pytest.mark.parametrize("mesh", ["4", "2x2"])
+def test_shuffle_by_key_on_the_card_equals_the_cpu(cuda, mesh):
+    from repro_torch.core.distributed import make_mesh, shuffle_by_key
+
+    n, axes = SHARD_MESHES[mesh]
+    m = make_mesh(*axes) if axes else make_mesh((n,), ("shards",))
+    gen = torch.Generator().manual_seed(n)
+    cols = torch.randint(-(2**31), 2**31 - 1, (3 * n, 5000, 2),
+                         generator=gen, dtype=torch.int32)
+    valid = torch.rand(3 * n, 5000, generator=gen) < 0.8
+    want = shuffle_by_key(cols, valid, [1, 0], m, (2048,) * len(m.axis_sizes))
+    got = shuffle_by_key(cols.to(cuda), valid.to(cuda), [1, 0], m,
+                         (2048,) * len(m.axis_sizes))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("shape", [(3, 1000), (4, 1 << 19), (8, 5)])
+def test_cumsum_i32_on_the_card_equals_torch(cuda, shape):
+    from repro_torch.core.segments import cumsum_i32
+
+    gen = torch.Generator().manual_seed(shape[1])
+    x = torch.randint(-(2**30), 2**30, shape, generator=gen,
+                      dtype=torch.int32).to(cuda)
+    want = torch.cumsum(x, dim=-1, dtype=torch.int32)
+    assert torch.equal(torch.func.vmap(cumsum_i32)(x), want)
+    assert torch.equal(cumsum_i32(x[0]), want[0])

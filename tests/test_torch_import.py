@@ -35,6 +35,9 @@ def test_port_imports_without_jax_or_reference():
         "repro_torch.launch.serve",
         "repro_torch.obs.metrics",
         "repro_torch.obs.trace",
+        "repro_torch.core.distributed",
+        "repro_torch.core.dist_executor",
+        "repro_torch.sparql.sharded_store",
     ):
         assert m in mods, m
     code = (
