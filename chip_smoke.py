@@ -82,12 +82,31 @@ Phases (any failure ends the run with a non-zero exit and no "ok" line):
      profiler, host enqueue); shuffles
      emitted / elided / broadcast per query, launches per kernel and peak
      device memory.
-  9. summary — the stacked-forms line, the kernels line, the card line,
+  9. sharded engine across processes — one shard per rank
+     (ShardedQueryEngine(ranks=init_ranks(...))), ranks spawned with a
+     file:// rendezvous under build/, the scale-1000 store written there
+     once and loaded by each rank: 4 ranks sharing the card over gloo
+     (exchanges staged through the host) run every phase 8 query, S1 on
+     the matrix backend, a retry forced by a warmup file at the smallest
+     buckets and a stacked FILTER-constant group; rank 0's result arrays
+     and ExecStats equal fresh one-process engines' over phase 8's store
+     (and its id rows the oracle's), every follower's runs report rank
+     0's ExecStats, call for call (warm: 1 dispatch, 0 compiles on every
+     rank), every rank launched pair_expand, match_layout and sort_ranks;
+     each rank's launches, peak memory and rank 0's warm p50 of execute
+     (no decode) beside the one-process engine's. Then a 2 x 2 mesh over
+     4 ranks at scale 2 against the one-process 2 x 2 engine; NCCL at
+     world = the card count (1 here: at scale 2, 4 cards: the scale-1000
+     checks), every plan program called with sync debugging set to
+     "error"; and `serve --shards 4` under torch.distributed.run (gloo on
+     the card), every answer's row multiset the one-process engine's.
+     Any rank's failure or hang fails the phase.
+ 10. summary — the stacked-forms line, the kernels line, the card line,
      then the result line.
 
-Each of the paths of phases 3, 5, 6, 7 and 8 runs with the launch counts set to
-0 just before it and read just after; the kernels line reports each
-kernel's launches from the path that runs it.
+Each of the paths of phases 3, 5, 6, 7, 8 and 9 runs with the launch counts set
+to 0 just before it and read just after (in phase 9 on each rank); the
+kernels line reports each kernel's launches from the path that runs it.
 
 Needs the repository's src/ beside it and one CUDA card; exits non-zero
 without them.
@@ -1580,7 +1599,545 @@ def sharded_phase(dev, full: dict) -> dict:
         f"{st['batched']['stacked_dispatches']}")
     return {"shards": SHARDS, "queries": report, "launches": launches,
             "device_launches": device, "peak_bytes": peak,
-            "retries": retries, "serving_p50_ms": burst_lat}
+            "retries": retries, "serving_p50_ms": burst_lat,
+            "store": sharded_store}
+
+
+# -- phase 9: the sharded engine across processes ------------------------------
+
+RANKS = 4
+RANK_REPEATS = 5
+RANK_TIMEOUT_S = 240  # every process group's timeout: a hang fails in it
+RANK_DIR = ROOT / "build" / "ranks"
+# the queries whose id rows are held to the hash-join oracle on the ranks
+ORACLE = ("Q1", "Q2", "Q4", "Q7", "Q9", "S1", "D1q")
+
+
+def write_store(store, path: pathlib.Path) -> None:
+    """The store's triples and terms, for the ranks to load (generating
+    scale 1000 takes the host ~46 s; loading it a few)."""
+    import numpy as np
+
+    d = store.dictionary
+    terms = "\0".join(d.decode(i) for i in range(len(d))).encode()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, triples=store.triples,
+             terms=np.frombuffer(terms, np.uint8))
+
+
+def read_store(path: str, n_shards: int):
+    """write_store's file as a store sharded over `n_shards`."""
+    import numpy as np
+
+    from repro_torch.sparql.dictionary import TermDict
+    from repro_torch.sparql.sharded_store import ShardedTripleStore
+
+    data = np.load(path)
+    d = TermDict()
+    d.encode_many(data["terms"].tobytes().decode().split("\0"))
+    return ShardedTripleStore(data["triples"], d, n_shards)
+
+
+def spawn_ranks(world: int, program: str, *args, device: str,
+                backend: "str | None" = None, axis_sizes=None,
+                axis_names=("shards",)) -> list:
+    """Run `program(ranks, *args)` (a function of this file) on `world`
+    spawned ranks with a file:// rendezvous under build/; returns each
+    rank's result. Any rank's failure or hang fails the phase: the first
+    rank to fail ends the others, and every rank is ended by the time
+    limit."""
+    import pickle
+    import uuid
+
+    import torch.multiprocessing as mp
+
+    out = RANK_DIR / f"{program}-{uuid.uuid4().hex[:8]}"
+    out.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=rank_main, args=(
+        rank, world, str(out), program, args, device, backend, axis_sizes,
+        axis_names)) for rank in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 2 * RANK_TIMEOUT_S
+    while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join(30)
+    errors = {r: (out / f"{r}.err").read_text()[-3000:]
+              for r in range(world) if (out / f"{r}.err").exists()}
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * world and not errors,
+          f"{program} on {world} ranks: exit codes {codes}; {errors}")
+    return [pickle.loads((out / f"{r}.pkl").read_bytes())
+            for r in range(world)]
+
+
+def rank_main(rank, world, out, program, args, device, backend, axis_sizes,
+              axis_names) -> None:
+    """One spawned rank: join the group, run the program, leave."""
+    import datetime
+    import os
+    import pickle
+    import traceback
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    try:
+        from repro_torch.core.ranks import init_ranks
+
+        ranks = init_ranks(
+            device=device, backend=backend, axis_sizes=axis_sizes,
+            axis_names=axis_names, init_method=f"file://{out}/rendezvous",
+            timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S),
+        )
+        try:
+            result = globals()[program](ranks, *args)
+        finally:
+            ranks.close()
+        with open(f"{out}/{rank}.pkl", "wb") as f:
+            pickle.dump(result, f)
+    except BaseException:
+        with open(f"{out}/{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def stats_fields(st) -> dict:
+    """The ExecStats fields every rank and the one-process engine share:
+    all but the host clock and the decode's row count."""
+    import dataclasses
+
+    d = dataclasses.asdict(st)
+    del d["device_time_s"], d["rows_emitted"]
+    return d
+
+
+def array_digest(rel) -> str:
+    """sha1 of a result's arrays, in order."""
+    import hashlib
+
+    h = hashlib.sha1(rel.cols.cpu().numpy().tobytes())
+    h.update(rel.valid.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def timed_execute(engine, text: str, repeats: int, calls=None) -> dict:
+    """A query cold, then `repeats` warm runs of engine.execute (dispatch
+    to the result arrays, no decode): the last run's array digest,
+    ExecStats and id rows, the cold seconds, and with repeats the warm
+    p50 and its device part (ms). `calls` gets each run's ExecStats as a
+    follower records them."""
+    from repro_torch.sparql.parser import parse
+
+    q = parse(text)
+    lat, dev_lat = [], []
+    for i in range(1 + repeats):
+        t = time.perf_counter()
+        rel, st = engine.execute(q)
+        lat.append(time.perf_counter() - t)
+        dev_lat.append(st.device_time_s)
+        if calls is not None:
+            calls.append(("execute", [stats_fields(st)]))
+    out = {"digest": array_digest(rel), "stats": stats_fields(st),
+           "ids": rel.cols[rel.valid].cpu().numpy(),
+           "rows": int(rel.valid.sum()), "cold_s": lat[0]}
+    if repeats:
+        out["warm_p50_ms"] = statistics.median(lat[1:]) * 1e3
+        out["device_p50_ms"] = statistics.median(dev_lat[1:]) * 1e3
+    return out
+
+
+def reference_runs(engines: dict, script: dict) -> dict:
+    """What the ranks are held to: the one-process engines' runs of the
+    ranks' script, in this process."""
+    from repro_torch.launch.serve import rows_digest
+
+    ref = {"queries": {name: timed_execute(engines["mr"], text,
+                                           RANK_REPEATS)
+                       for name, text in script["queries"].items()}}
+    eng = engines["mr"]
+    eng.run_batch([eng.prepare(v) for v in script["batch"]])
+    out = eng.run_batch([eng.prepare(v) for v in script["batch"]])
+    ref["batch"] = [rows_digest(r.rows) for r in out]
+    for kind in ("matrix", "retry"):
+        for name in script[kind]:
+            ref["queries"][f"{kind}/{name}"] = timed_execute(
+                engines[kind], script["queries"][name], REPEATS_OF[kind])
+    return ref
+
+
+# warm repeats on the matrix and the retry engines: the retry is the cold
+# run at the smallest buckets
+REPEATS_OF = {"matrix": 1, "retry": 0}
+
+
+def extra_engines(script: dict) -> list:
+    """(kind, engine options) of the engines after the first that the
+    script runs queries on."""
+    kinds = [("matrix", {"join_backend": "matrix"}),
+             ("retry", {"warmup_path": script["warmup"]})]
+    return [(kind, kw) for kind, kw in kinds if script[kind]]
+
+
+def lead_script(ranks, make_engine, script: dict) -> dict:
+    """Rank 0: the script's calls, one engine after another, each closed
+    so the followers move on with it."""
+    from repro_torch.launch.serve import rows_digest
+
+    rec = {"queries": {}, "calls": []}
+    calls = rec["calls"]
+    engine = make_engine()
+    for name, text in script["queries"].items():
+        rec["queries"][name] = timed_execute(engine, text, RANK_REPEATS,
+                                             calls)
+    for _ in range(2):
+        out = engine.run_batch([engine.prepare(v) for v in script["batch"]])
+        calls.append(("run_batch", [stats_fields(r.stats) for r in out]))
+    rec["batch"] = [rows_digest(r.rows) for r in out]
+    rec["batch_groups"] = [(g.widths, g.n_dispatches, g.fallback)
+                           for g in engine.last_batch]
+    engine.close()
+    if script["no_sync"]:
+        rec["no_sync"] = programs_without_sync(ranks, engine, script)
+    for kind, kw in extra_engines(script):
+        engine = make_engine(**kw)
+        for name in script[kind]:
+            rec["queries"][f"{kind}/{name}"] = timed_execute(
+                engine, script["queries"][name], REPEATS_OF[kind], calls)
+        engine.close()
+    return rec
+
+
+def follow_script(ranks, make_engine, script: dict) -> list:
+    """A follower: each of lead_script's engines in turn, recording every
+    call's ExecStats as rank 0 records its own."""
+    calls = []
+
+    def record(method, outcome):
+        if isinstance(outcome, list):
+            outcome = [repr(o) if isinstance(o, Exception)
+                       else stats_fields(o) for o in outcome]
+        calls.append((method, outcome))
+
+    engine = make_engine()
+    engine.follow(record)
+    if script["no_sync"]:
+        programs_without_sync(ranks, engine, script)
+    for _, kw in extra_engines(script):
+        make_engine(**kw).follow(record)
+    return calls
+
+
+def programs_without_sync(ranks, engine, script: dict) -> int:
+    """Every rank calls each query's cached plan program with sync
+    debugging set to "error" (warm_without_sync), in rank 0's order and
+    plans, after the engine's lockstep ended: the collectives inside the
+    program make no host sync."""
+    from repro_torch.sparql.engine import PreparedQuery
+
+    plans = ranks.broadcast(
+        [(t, engine.prepare(t)._program) for t in script["queries"].values()]
+        if ranks.rank == 0 else None)
+    for text, prog in plans:
+        warm_without_sync(
+            engine, PreparedQuery(engine, text, prog.query, program=prog))
+    return len(plans)
+
+
+def scale_rank_prog(ranks, store_path: str, script: dict) -> dict:
+    """The full script on one shard per rank: rank 0 leads, the others
+    follow. Each rank's launches (counts set to 0 just before the engine
+    runs), peak device memory and load time come back with it."""
+    from repro_torch import kernels
+    from repro_torch.sparql.engine import ShardedQueryEngine
+
+    t = time.perf_counter()
+    store = read_store(store_path, ranks.world_size)
+    load_s = time.perf_counter() - t
+
+    def make_engine(**kw):
+        return ShardedQueryEngine(store, ranks=ranks, **kw)
+
+    card = ranks.device.type == "cuda"
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    clear_launches(kernels)
+    if ranks.rank == 0:
+        rec = lead_script(ranks, make_engine, script)
+    else:
+        rec = {"calls": follow_script(ranks, make_engine, script)}
+    if card:
+        torch.cuda.synchronize()
+    rec.update(rank=ranks.rank, backend=ranks.backend, load_s=load_s,
+               device=str(ranks.device),
+               launches=dict(kernels.LAUNCHES),
+               device_launches=dict(getattr(kernels, "DEVICE_LAUNCHES", {})),
+               peak_bytes=torch.cuda.max_memory_allocated() if card else None)
+    return rec
+
+
+def check_ranks(label: str, recs: list, ref: dict, oracle: dict,
+                script: dict) -> dict:
+    """Rank 0's arrays and ExecStats equal the one-process engine's, its
+    id rows the oracle's, a warm run is 1 dispatch and 0 compiles; every
+    follower's runs report rank 0's ExecStats, call for call; every rank
+    launched the three kernels of the query path."""
+    r0 = recs[0]
+    for name, got in r0["queries"].items():
+        want = ref["queries"][name]
+        check(got["digest"] == want["digest"],
+              f"{label} {name}: rank 0's arrays != the one-process engine's")
+        check(got["stats"] == want["stats"],
+              f"{label} {name}: ExecStats {got['stats']} != {want['stats']}")
+        if name in oracle:
+            ids = {tuple(int(x) for x in row) for row in got["ids"]}
+            check(ids == oracle[name], f"{label} {name}: != oracle")
+        if "/" not in name:
+            check(got["stats"]["n_dispatches"] == 1
+                  and got["stats"]["n_compiles"] == 0,
+                  f"{label} {name}: warm {got['stats']}")
+    for name in script["retry"]:
+        check(r0["queries"][f"retry/{name}"]["stats"]["n_retries"] >= 1,
+              f"{label} {name}: no retry at the smallest buckets")
+    check(r0["batch"] == ref["batch"], f"{label}: run_batch rows")
+    check(r0["batch_groups"] == [((4,), 1, False)],
+          f"{label}: run_batch groups {r0['batch_groups']}")
+    for rec in recs[1:]:
+        check(rec["calls"] == r0["calls"], f"{label} rank {rec['rank']}: "
+              "its runs' ExecStats != rank 0's")
+    for rec in recs:
+        for k in ("pair_expand", "match_layout", "sort_ranks"):
+            check(rec["launches"].get(k, 0) > 0,
+                  f"{label} rank {rec['rank']}: kernel {k} not launched")
+    keep = ("rows", "cold_s", "warm_p50_ms", "device_p50_ms")
+    return {
+        "ranks": [{k: rec[k] for k in ("rank", "backend", "device",
+                                       "load_s", "launches",
+                                       "device_launches", "peak_bytes")}
+                  for rec in recs],
+        "queries": {name: {k: q[k] for k in keep if k in q}
+                    for name, q in r0["queries"].items()},
+        "one_process": {name: {k: q[k] for k in keep if k in q}
+                        for name, q in ref["queries"].items()},
+        "no_sync_programs": r0.get("no_sync"),
+    }
+
+
+def small_rank_prog(ranks, store_path: str, texts: dict) -> dict:
+    """Each query cold and warm on a 2 x 2 mesh of ranks (rank 0 leads):
+    rank 0's array digests and warm ExecStats."""
+    from repro_torch.sparql.engine import ShardedQueryEngine
+
+    engine = ShardedQueryEngine(read_store(store_path, ranks.world_size),
+                                ranks=ranks)
+    if ranks.rank != 0:
+        return {"calls": engine.follow()}
+    out = {name: {k: v for k, v in timed_execute(engine, text, 1).items()
+                  if k in ("digest", "stats")}
+           for name, text in texts.items()}
+    engine.close()
+    return out
+
+
+def serve_burst(dev, shards: int, expected: dict) -> dict:
+    """`serve --shards` under torch.distributed.run: `shards` ranks on
+    `dev` over gloo at scale 2; every answer's row multiset equals the
+    one-process engine's."""
+    import os
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(shards), "-m", "repro_torch.launch.serve",
+           "--mode", "sparql", "--shards", str(shards), "--device",
+           str(dev), "--backend", "gloo", "--scale", str(SMALL_SCALE),
+           "--n-queries", "4"]
+    import repro_torch
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(pathlib.Path(repro_torch.__file__).parents[1])
+    t = time.perf_counter()
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=2 * RANK_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    check(out.returncode == 0,
+          f"serve --shards {shards}: {out.stdout[-2000:]}{out.stderr[-3000:]}")
+    got = {f"{q}#{i}": (int(n), digest) for q, i, n, digest in re.findall(
+        r"^(Q\d)#(\d+): (\d+) rows, sha1 (\w+)$", out.stdout, re.MULTILINE)}
+    check(len(got) == 4 * len(expected), f"serve answered {sorted(got)}")
+    for key, answer in got.items():
+        check(answer == expected[key.split("#")[0]],
+              f"serve --shards {shards} {key}: {answer} != one process's "
+              f"{expected[key.split('#')[0]]}")
+    stats = re.search(r"^server stats: (.*)$", out.stdout, re.MULTILINE)
+    return {"answers": len(got), "wall_s": wall,
+            "server_stats": stats.group(1)[:400] if stats else None}
+
+
+def ranks_phase(dev, full: dict, sharded: dict,
+                nccl_only: bool = False) -> dict:
+    """The sharded engine with one shard per process. On one card the
+    ranks share cuda:0 over gloo (NCCL refuses two ranks on one card):
+    its exchanges are staged through the host, so its times are not a
+    measure of the card. NCCL runs at world = the card count; with
+    `nccl_only`, that run and its references alone."""
+    import json as _json
+
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.launch.serve import rows_digest
+    from repro_torch.sparql import lubm
+    from repro_torch.sparql.engine import ShardedQueryEngine
+    from repro_torch.sparql.sharded_store import shard_store
+
+    t0 = time.perf_counter()
+    store, texts = full["store"], sharded_queries(lubm)
+    path = RANK_DIR / "scale1000.npz"
+    write_store(store, path)
+    # the reference: phase 8's one-process configuration (its store, 4
+    # shards on the card), in fresh engines that run the ranks' calls
+    engines = {"mr": ShardedQueryEngine(sharded["store"], device=dev),
+               "matrix": ShardedQueryEngine(sharded["store"], device=dev,
+                                            join_backend="matrix")}
+    variants = [texts["F1"].replace("prof_0_0_0", v) for v in
+                ("prof_0_0_0", "prof_0_1_0", "prof_1_0_0", "nobody")]
+    small = RANK_DIR / "small.json"
+    script = {"queries": texts, "matrix": ("S1",), "retry": (),
+              "batch": variants, "warmup": str(small), "no_sync": False}
+    ref = reference_runs(engines, script)
+    # a warmup file at the smallest buckets: every rank reads it, so every
+    # rank retries alike (Q2 shuffles on every stage)
+    engines["mr"].save_cache(str(small))
+    data = _json.loads(small.read_text())
+    for e in data["entries"]:
+        e["join_caps"] = [8] * len(e["join_caps"])
+        e["shuffle_caps"] = [8] * len(e["shuffle_caps"])
+    small.write_text(_json.dumps(data))
+    script["retry"] = ("Q2",)
+    ref["queries"]["retry/Q2"] = timed_execute(ShardedQueryEngine(
+        sharded["store"], device=dev, warmup_path=str(small)), texts["Q2"], 0)
+    log(f"ranks: store written, references run "
+        f"({time.perf_counter() - t0:.1f} s)")
+    oracle = dict(full["oracle"])
+    oracle["D1q"] = oracle_rows(store, texts["D1q"])
+    out = {}
+    if nccl_only:
+        out["nccl"] = nccl_ranks(dev, path, script, ref, oracle, store, None)
+        return out
+
+    t = time.perf_counter()
+    recs = spawn_ranks(RANKS, "scale_rank_prog", str(path), script,
+                       device=str(dev), backend="gloo")
+    out["gloo"] = check_ranks("gloo", recs, ref, oracle, script)
+    out["gloo"]["wall_s"] = time.perf_counter() - t
+    log(f"ranks, gloo, exchanges staged through the host ({RANKS} ranks on "
+        f"{dev}, scale {FULL_SCALE}): every query's arrays and ExecStats "
+        f"== the one-process engine's, rows == the oracle's; "
+        f"{_json.dumps(out['gloo'])}")
+
+    # a 2 x 2 mesh over 4 ranks at scale 2
+    base = lubm.generate(scale=SMALL_SCALE, join_shapes=True, skew_shapes=True)
+    small_path = RANK_DIR / "scale2.npz"
+    write_store(base, small_path)
+    mesh = ((2, 2), ("pod", "data"))
+    one = ShardedQueryEngine(shard_store(base, 4), device=dev,
+                             mesh=make_mesh(*mesh))
+    want = {name: timed_execute(one, text, 1) for name, text in texts.items()}
+    t = time.perf_counter()
+    recs = spawn_ranks(4, "small_rank_prog", str(small_path), texts,
+                       device=str(dev), backend="gloo", axis_sizes=mesh[0],
+                       axis_names=mesh[1])
+    for name in texts:
+        for k in ("digest", "stats"):
+            check(recs[0][name][k] == want[name][k],
+                  f"2 x 2 ranks {name}: {k} != the one-process engine's")
+    out["mesh_2x2"] = {"queries": len(texts),
+                       "wall_s": time.perf_counter() - t}
+    log(f"ranks, gloo, 2 x 2 mesh over 4 ranks at scale {SMALL_SCALE}: "
+        f"{len(texts)} queries, arrays and ExecStats == the one-process "
+        f"2 x 2 engine's")
+
+    out["nccl"] = nccl_ranks(dev, path, script, ref, oracle, store,
+                             (base, small_path))
+
+    # a short burst through serve --shards on 4 ranks
+    serve_store = lubm.generate(scale=SMALL_SCALE)
+    one = ShardedQueryEngine(shard_store(serve_store, RANKS), device=dev)
+    expected = {}
+    for name, text in lubm.QUERIES.items():
+        rows = one.query(text)
+        expected[name] = (len(rows), rows_digest(rows))
+    out["serve"] = serve_burst(dev, RANKS, expected)
+    log(f"ranks, serve --shards {RANKS} under torch.distributed.run (gloo on "
+        f"{dev}): {out['serve']}")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def nccl_ranks(dev, path, script: dict, ref: dict, oracle: dict, store,
+               small) -> dict:
+    """NCCL at world = the card count: on 4 cards the scale-1000 checks
+    against `ref`, beside the single-device engine's warm p50 on `store`;
+    on one card (NCCL's collectives on the path at world 1) the scale-2
+    store of `small` (the store, its file) against a one-process engine
+    over `world` shards. Every plan program is called with sync
+    debugging set to "error"."""
+    from repro_torch.sparql.engine import QueryEngine, ShardedQueryEngine
+    from repro_torch.sparql.sharded_store import shard_store
+
+    world = torch.cuda.device_count()
+    t = time.perf_counter()
+    if world == RANKS:
+        nccl_script = dict(script, no_sync=True)
+        recs = spawn_ranks(world, "scale_rank_prog", str(path), nccl_script,
+                           device=None)
+        out = check_ranks("nccl", recs, ref, oracle, nccl_script)
+        single = QueryEngine(store, device=dev)
+        out["single_device"] = {
+            name: {k: v for k, v in timed_execute(
+                single, text, RANK_REPEATS).items()
+                if k in ("warm_p50_ms", "device_p50_ms")}
+            for name, text in script["queries"].items()}
+    else:
+        check(small is not None, f"nccl at world {world}: no store for it")
+        base, small_path = small
+        one = ShardedQueryEngine(shard_store(base, world), device=dev)
+        n_engines = {"mr": one, "matrix": ShardedQueryEngine(
+            one.store, device=dev, join_backend="matrix")}
+        nccl_script = dict(script, no_sync=True, retry=())
+        n_ref = reference_runs(n_engines, nccl_script)
+        recs = spawn_ranks(world, "scale_rank_prog", str(small_path),
+                           nccl_script, device=None)
+        out = check_ranks("nccl", recs, n_ref, {}, nccl_script)
+    check(out["no_sync_programs"] == len(script["queries"]),
+          "nccl: the no-sync check did not run every program")
+    out["world"] = world
+    out["wall_s"] = time.perf_counter() - t
+    log(f"ranks, nccl at world {world}: arrays and ExecStats == the "
+        f"one-process engine's, no host sync in any plan program; "
+        f"{json.dumps(out)}")
+    return out
+
+
+def nccl_only(dev) -> dict:
+    """The inputs phase 9's NCCL run needs without phases 2-8: the
+    scale-1000 store, its oracle and its 4-shard partition."""
+    from repro_torch.sparql import lubm
+    from repro_torch.sparql.sharded_store import shard_store
+
+    t = time.perf_counter()
+    store = lubm.generate(scale=FULL_SCALE, join_shapes=True, skew_shapes=True)
+    texts = sharded_queries(lubm)
+    oracle = {name: oracle_rows(store, texts[name]) for name in ORACLE
+              if name != "D1q"}
+    log(f"nccl only: store and oracle ({time.perf_counter() - t:.1f} s)")
+    return ranks_phase(dev, {"store": store, "oracle": oracle},
+                       {"store": shard_store(store, SHARDS)}, nccl_only=True)
 
 
 # -- main ----------------------------------------------------------------------
@@ -1595,6 +2152,10 @@ def main(argv: list[str]) -> int:
                     help="the tree whose repro_torch to drive (default: "
                     "this checkout's src/); with --kernels-only, times an "
                     "earlier commit's kernels in the same call")
+    ap.add_argument("--nccl-only", action="store_true",
+                    help="phase 9's NCCL run alone (on a host of several "
+                    "cards: one rank per card at scale 1000) with the "
+                    "one-process runs it is held to; no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1623,6 +2184,12 @@ def main(argv: list[str]) -> int:
         f"{time.perf_counter() - t:.2f} s")
 
     log(f"tree: {src}")
+    if args.nccl_only:
+        out = nccl_only(dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(out), flush=True)
+        print(card, flush=True)
+        return 0
     rows = kernel_phase(dev)
     if args.kernels_only:
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
@@ -1636,13 +2203,16 @@ def main(argv: list[str]) -> int:
     serving = serving_phase(dev, full)
     sharded_small_phase(dev)
     sharded = sharded_phase(dev, full)
+    ranks = ranks_phase(dev, full, sharded)
     for name, row in rows.items():
         row["launches"] = (full["launches"] | api_launches).get(name, 0)
         check(row["launches"] > 0, f"kernel {name} was not launched")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     full = {k: full[k] for k in ("launches", "peak_bytes", "queries")}
+    del sharded["store"]
     print(json.dumps({"full_scale": full, "matrix": matrix,
-                      "serving": serving, "sharded": sharded}), flush=True)
+                      "serving": serving, "sharded": sharded,
+                      "ranks": ranks}), flush=True)
     print(json.dumps({"stacked": stacked}), flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(card, flush=True)

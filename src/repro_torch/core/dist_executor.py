@@ -3,11 +3,15 @@
 `core/executor.py` lowers a PhysicalPlan to a single-device program; this
 module lowers the SAME plan IR to a sharded program, so the parser,
 algebra, optimizer, plan-shape cache and bucket-calibration layers above
-stay unchanged. Every shard lives on the one device along an explicit
-leading shard axis (core/distributed.py): per-shard work runs under
-`torch.func.vmap` over that axis — one launch of each kernel's lane form
-for all shards — and the exchanges (`all_to_all`, `all_gather`) run
-between the vmapped stages, on the explicit axis.
+stay unchanged. A process holds its shards along an explicit leading
+shard axis (core/distributed.py): every shard on the one device, or its
+own rank's shard when each shard is a process (core/ranks.py). Per-shard
+work runs under `torch.func.vmap` over that axis — one launch of each
+kernel's lane form for all of the process's shards — and the exchanges
+(`all_to_all`, `all_gather`) run between the vmapped stages, on the
+explicit axis or as collectives across the ranks, never inside a vmap.
+The result rows are gathered to every process in flat rank order, so
+either placement returns the same arrays.
 
 The lowering is PARTITIONING-AWARE (the cascading map-side-join idea):
 `analyze_plan` propagates a `Partitioning` property bottom-up — a
@@ -20,8 +24,8 @@ does not already match the join key. A subject-subject star join chain
 therefore runs with ZERO exchanges: every step is a pure map-side join.
 Inside the one dispatch:
 
-  * Scan    — the store's flat (n_shards * cap) scan buffer viewed as
-              (n_shards, cap): row block k is shard k's partition;
+  * Scan    — the store's flat (local_shards * cap) scan buffer viewed
+              as (local_shards, cap): row block k is shard k's partition;
               partitioned on its subject column when the subject is a
               variable;
   * MRJoin / MatrixJoin — per side: already aligned -> local (no
@@ -50,8 +54,8 @@ Inside the one dispatch:
 Before the join chain runs, every emitted shuffle whose input is an
 exchange-free subtree (scan/filter/project) is issued into a
 `distributed.ShuffleSlots` buffer, as the reference does to overlap its
-collectives with the local joins; on one device this fixes only the
-order the work is enqueued in.
+collectives with the local joins; every rank issues them in the same
+order.
 
 Everything dynamic rides back in the same dispatch, per shard: exact join
 totals, join-bucket overflow flags, exact shuffle bucket needs and
@@ -98,19 +102,20 @@ class ShardedChainResult(NamedTuple):
     """Everything one sharded dispatch returns (device-resident).
 
     `relation` rows are flat in shard order (shard k's slice is row block
-    k); the per-join and per-shuffle accounting keeps the shard axis so
-    the host can regrow buckets from the worst shard's exact numbers. The
-    shuffle arrays carry one slot per site PER MESH-AXIS STAGE
-    (n_sites * n_stages, site-major), so a hierarchical shuffle's stages
-    regrow independently. A stacked batch adds a leading lane axis to
-    every field.
+    k), every shard's on every process; the per-join and per-shuffle
+    accounting keeps the process's own shards on the shard axis, so the
+    host can gather them and regrow buckets from the worst shard's exact
+    numbers. The shuffle arrays carry one slot per site PER MESH-AXIS
+    STAGE (n_sites * n_stages, site-major), so a hierarchical shuffle's
+    stages regrow independently. A stacked batch adds a leading lane
+    axis to every field.
     """
 
     relation: Relation  # (n_shards * cap_out, n_cols)
-    totals: torch.Tensor  # (n_shards, n_joins) exact local join totals
-    overflows: torch.Tensor  # (n_shards, n_joins) join bucket truncated
-    shuffle_needs: torch.Tensor  # (n_shards, n_sites * n_stages) worst load
-    shuffle_flags: torch.Tensor  # (n_shards, n_sites * n_stages) dropped
+    totals: torch.Tensor  # (local_shards, n_joins) exact local join totals
+    overflows: torch.Tensor  # (local_shards, n_joins) join bucket truncated
+    shuffle_needs: torch.Tensor  # (local_shards, n_sites * n_stages) load
+    shuffle_flags: torch.Tensor  # (local_shards, n_sites * n_stages) dropped
 
 
 # -- partitioning property (the map-side-join lattice) ------------------------
@@ -413,10 +418,9 @@ def _local_program(
 ) -> Callable[..., ShardedChainResult]:
     """The sharded program over explicit shard axes: plan tree -> function
     of (scans, consts_i, consts_f, num_vals) whose scans and constants
-    carry a leading (lanes * n_shards) axis and whose every output field
-    does too; `num_vals` is shared by every shard."""
+    carry a leading (lanes * local_shards) axis and whose every output
+    field does too; `num_vals` is shared by every shard."""
     n_stages = len(mesh.axis_names)
-    n_shards = mesh.n_shards
     site_nodes = shuffle_site_nodes(plan)
     site_of = {id(n): i for i, n in enumerate(site_nodes)}
     assert len(shuffle_caps) == len(site_nodes) * n_stages, (
@@ -568,11 +572,12 @@ def _local_program(
                 return _local(mj.distinct, child)
             if isinstance(node, Slice):
                 # the global valid-row rank: rows of lower-ranked shards
-                # (flat rank order) come first
+                # (flat rank order) come first, so each shard needs every
+                # shard's count of its lane
                 child = eval_node(node.child)
                 count = child.valid.sum(dim=1, dtype=torch.int32)
-                per_lane = count.reshape(-1, n_shards)
-                prev = (cumsum_i32(per_lane) - per_lane).reshape(b)
+                per_lane = dj.gather_shards(count[:, None], mesh)
+                prev = dj.own_shards(cumsum_i32(per_lane) - per_lane, mesh)
                 offset = consts_i[:, node.offset_index, None]
                 limit = consts_i[:, node.limit_index, None]
                 rank = prev[:, None] + cumsum_i32(child.valid)
@@ -643,17 +648,20 @@ def lower_sharded(
 ) -> Callable[..., ShardedChainResult]:
     """Plan tree -> function of (scans, consts_i, consts_f, num_vals) with
     the single-device program's call signature: scans are the store's
-    flat (n_shards * cap, n_cols) buffers, constants are shared by every
-    shard, and the result's rows come back flat in shard order.
+    flat (local_shards * cap, n_cols) buffers (every shard's block, or
+    across ranks the rank's own), constants are shared by every shard,
+    and the result's rows come back flat in shard order, every shard's
+    on every process. The accounting keeps the process's own shards.
 
     Join/shuffle accounting is collected in evaluation order — the same
     order `build_plan` consumes join_caps in. `shuffle_caps` carries
     n_shuffle_slots(plan, len(mesh.axis_names)) entries: per shuffle site
     (join steps in join_caps order — cross joins keep a structural slot —
     plus one per Distinct), one bucket per mesh-axis stage."""
-    s = mesh.n_shards
+    s = mesh.local_shards
     local_run = _local_program(
-        plan, mesh, shuffle_caps, analyze_plan(plan, s, broadcast_rows)
+        plan, mesh, shuffle_caps,
+        analyze_plan(plan, mesh.n_shards, broadcast_rows),
     )
 
     def run(scans, consts_i, consts_f, num_vals) -> ShardedChainResult:
@@ -668,7 +676,7 @@ def lower_sharded(
         res = local_run(
             split, consts_i.expand(s, -1), consts_f.expand(s, -1), num_vals
         )
-        out = res.relation
+        out = dj.gather_relation(res.relation, mesh)
         return res._replace(relation=Relation(
             out.schema, out.cols.reshape(-1, out.n_cols),
             out.valid.reshape(-1),
@@ -735,14 +743,17 @@ def lower_sharded_batched(
     per-shard stages, so each kernel call is still one launch for every
     (lane, shard); the exchanges reshape that axis back into (lanes,
     shards) and move rows only between shards of one lane. `scan_axes` is
-    the per-scan lane axis: 0 for a (width, n_shards * cap, n_cols)
-    stacked buffer, None for a (n_shards * cap, n_cols) scan every lane
-    shares. A `(width,)` bool `lane_active` mask zeroes padding lanes'
-    scan validity and overflow flags, so padding can never emit rows or
+    the per-scan lane axis: 0 for a (width, local_shards * cap, n_cols)
+    stacked buffer, None for a (local_shards * cap, n_cols) scan every
+    lane shares; the result's rows come back (width, n_shards * cap_out)
+    on every process, the accounting (width, local_shards, slots). A
+    `(width,)` bool `lane_active` mask zeroes padding lanes' scan
+    validity and overflow flags, so padding can never emit rows or
     trigger a regrow."""
-    s = mesh.n_shards
+    s = mesh.local_shards
     local_run = _local_program(
-        plan, mesh, shuffle_caps, analyze_plan(plan, s, broadcast_rows)
+        plan, mesh, shuffle_caps,
+        analyze_plan(plan, mesh.n_shards, broadcast_rows),
     )
     axes = tuple(scan_axes)
 
@@ -750,12 +761,12 @@ def lower_sharded_batched(
         width = lane_active.shape[0]
 
         def per_shard(x: torch.Tensor) -> torch.Tensor:
-            # (width, n) -> (width * n_shards, n), lane-major
+            # (width, n) -> (width * local_shards, n), lane-major
             return x[:, None].expand(width, s, *x.shape[1:]).reshape(
                 width * s, *x.shape[1:]
             )
 
-        active = per_shard(lane_active[:, None])  # (width * n_shards, 1)
+        active = per_shard(lane_active[:, None])  # (width * local_shards, 1)
         split = []
         for r, ax in zip(scans, axes):
             cols, valid = r.cols, r.valid
@@ -770,17 +781,13 @@ def lower_sharded_batched(
         res = local_run(
             tuple(split), per_shard(consts_i), per_shard(consts_f), num_vals
         )
-        out = res.relation
+        out = dj.gather_relation(res.relation, mesh)
 
         def lanes(x: torch.Tensor) -> torch.Tensor:
             return x.reshape(width, s, *x.shape[1:])
 
         return ShardedChainResult(
-            Relation(
-                out.schema,
-                out.cols.reshape(width, -1, out.n_cols),
-                out.valid.reshape(width, -1),
-            ),
+            out,
             lanes(res.totals),
             lanes(res.overflows & active),
             lanes(res.shuffle_needs),

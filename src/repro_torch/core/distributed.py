@@ -6,23 +6,39 @@ sort-merge ReduceDuplicate. A mesh of several axes uses a hierarchical
 shuffle, one stage per axis (route along the outer axis first, then the
 inner), so traffic over the outer axis happens exactly once.
 
-Every shard lives on ONE device here, along an explicit leading shard
-axis: a sharded tensor is (lanes * n_shards, rows, ...), shards in flat
+A process holds its shards along an explicit leading shard axis: a
+sharded tensor is (lanes * local_shards, rows, ...), shards in flat
 row-major rank order over the mesh axes (lanes = 1 outside a stacked
-batch). The exchanges are `all_to_all` and `all_gather` below — one
-function each, reshapes and transposes along that axis — and everything
-else is per-shard work the callers run under `torch.func.vmap` over the
-axis, so each kernel call launches once for all shards.
+batch). Two placements, chosen by the caller:
+
+  * one process, every shard on its one device (a plain `make_mesh`):
+    local_shards = n_shards, and an exchange is a reshape and transpose
+    along that axis;
+  * one shard per process (`core/ranks.py`, the reference's one shard
+    per device): local_shards = 1, and an exchange is a
+    `torch.distributed` collective over the mesh axis's process group.
+
+The exchanges are `all_to_all` and `all_gather` below (with
+`gather_shards`, `gather_relation` and `own_shards`, which only the
+second placement makes collectives of); everything else is per-shard
+work the callers run under `torch.func.vmap` over the axis, so each
+kernel call launches once for all of a process's shards. No collective
+runs inside a vmap.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import TYPE_CHECKING, ClassVar
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import mr_join as mj
 from repro_torch.core.relation import Relation
+
+if TYPE_CHECKING:
+    from repro_torch.core.ranks import RankContext
 
 _FNV_OFFSET = 2166136261
 _FNV_PRIME = 16777619
@@ -37,6 +53,11 @@ class ShardMesh:
 
     axis_sizes: tuple[int, ...]
     axis_names: tuple[str, ...]
+    # the process groups when each shard is a process of its own
+    # (ranks.init_ranks binds them); None when every shard lives on this
+    # process's device. A class-level default, not a field: equality and
+    # hashing see the axes alone.
+    ranks: ClassVar["RankContext | None"] = None
 
     def __post_init__(self):
         assert len(self.axis_sizes) == len(self.axis_names) >= 1
@@ -53,6 +74,11 @@ class ShardMesh:
     def axis_size(self, axis: str) -> int:
         return self.shape[axis]
 
+    @property
+    def local_shards(self) -> int:
+        """Shards this process holds: every one, or its own rank's."""
+        return self.n_shards if self.ranks is None else 1
+
 
 def make_mesh(axis_sizes, axis_names) -> ShardMesh:
     return ShardMesh(tuple(int(s) for s in axis_sizes), tuple(axis_names))
@@ -63,11 +89,18 @@ def make_mesh(axis_sizes, axis_names) -> ShardMesh:
 
 def all_to_all(buf: torch.Tensor, mesh: ShardMesh, axis: str) -> torch.Tensor:
     """Swap source and destination along one mesh axis: `buf` is
-    (lanes * n_shards, size, ...), slot j of each shard bound for the
+    (lanes * local_shards, size, ...), slot j of each shard bound for the
     shard whose coordinate on `axis` is j (the others equal); the result
     holds in slot j what that shard sent here. Equal to
     `jax.lax.all_to_all(x, axis, split_axis=0, concat_axis=0,
     tiled=False)` on every shard."""
+    if mesh.ranks is not None:
+        # destination-major, so chunk j goes to the axis group's rank j
+        # (its coordinate j), and chunk j back holds what rank j sent
+        send = buf.transpose(0, 1).contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=mesh.ranks.group(axis))
+        return recv.transpose(0, 1)
     k = mesh.axis_names.index(axis)
     m = len(mesh.axis_sizes)
     lanes = buf.shape[0] // mesh.n_shards
@@ -76,13 +109,54 @@ def all_to_all(buf: torch.Tensor, mesh: ShardMesh, axis: str) -> torch.Tensor:
 
 
 def all_gather(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
-    """Every shard's rows on every shard: (lanes * n_shards, n, ...) ->
-    (lanes * n_shards, n_shards * n, ...), concatenated in flat rank
-    order (the reference gathers the innermost axis first)."""
+    """Every shard's rows on every shard: (lanes * local_shards, n, ...)
+    -> (lanes * local_shards, n_shards * n, ...), concatenated in flat
+    rank order (the reference gathers the innermost axis first)."""
     s = mesh.n_shards
+    if mesh.ranks is not None:
+        # over the world group, whose rank order is the flat mesh order;
+        # bool rides as uint8 (a view), which every backend exchanges
+        src = x.view(torch.uint8) if x.dtype == torch.bool else x
+        out = src.new_empty((s * src.shape[0], *src.shape[1:]))
+        dist.all_gather_into_tensor(out, src.contiguous())
+        out = out.view(x.dtype) if x.dtype == torch.bool else out
+        g = out.reshape(s, x.shape[0], *x.shape[1:]).transpose(0, 1)
+        return g.reshape(x.shape[0], s * x.shape[1], *x.shape[2:])
     lanes = x.shape[0] // s
     g = x.reshape(lanes, 1, s * x.shape[1], *x.shape[2:])
     return g.expand(lanes, s, *g.shape[2:]).reshape(lanes * s, *g.shape[2:])
+
+
+def gather_shards(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
+    """Every shard's block on this process, in flat rank order:
+    (lanes * local_shards, n, ...) -> (lanes, n_shards * n, ...). One
+    process holds them already (a reshape); across ranks an all_gather."""
+    if mesh.ranks is not None:
+        return all_gather(x, mesh)
+    lanes = x.shape[0] // mesh.n_shards
+    return x.reshape(lanes, mesh.n_shards * x.shape[1], *x.shape[2:])
+
+
+def gather_relation(rel: Relation, mesh: ShardMesh) -> Relation:
+    """A per-shard relation (lanes * local_shards, cap, c) -> (lanes,
+    n_shards * cap, c), rows in flat rank order on every process. Across
+    ranks `valid` rides as one more int32 column: one exchange."""
+    if mesh.ranks is None:
+        return Relation(rel.schema, gather_shards(rel.cols, mesh),
+                        gather_shards(rel.valid, mesh))
+    packed = torch.cat(
+        [rel.cols, rel.valid[..., None].to(rel.cols.dtype)], -1
+    )
+    g = gather_shards(packed, mesh)
+    return Relation(rel.schema, g[..., :-1], g[..., -1].bool())
+
+
+def own_shards(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
+    """The inverse selection: (lanes, n_shards, ...) -> (lanes *
+    local_shards, ...), the entries of the shards this process holds."""
+    if mesh.ranks is not None:
+        return x[:, mesh.ranks.rank]
+    return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
 
 
 # -- the hash and the buckets ---------------------------------------------------
@@ -162,12 +236,15 @@ def _shuffle_one_axis(cols, valid, dest_along_axis, mesh: ShardMesh,
     buf, bvalid, overflowed, max_load = bucketize(
         cols, valid, dest_along_axis, size, bucket_capacity
     )
-    buf = all_to_all(buf, mesh, axis)
-    bvalid = all_to_all(bvalid, mesh, axis)
+    # valid rides as one more int32 column: one exchange per stage
+    packed = all_to_all(
+        torch.cat([buf, bvalid[..., None].to(buf.dtype)], -1), mesh, axis
+    )
     b, n_cols = cols.shape[0], cols.shape[-1]
+    packed = packed.reshape(b, size * bucket_capacity, n_cols + 1)
     return (
-        buf.reshape(b, size * bucket_capacity, n_cols),
-        bvalid.reshape(b, size * bucket_capacity),
+        packed[..., :n_cols].contiguous(),
+        packed[..., n_cols].bool(),
         overflowed,
         max_load,
     )
@@ -178,7 +255,7 @@ def shuffle_by_key(cols: torch.Tensor, valid: torch.Tensor,
                    bucket_capacity: "int | tuple[int, ...]"):
     """Hierarchical MapReduce shuffle: equal keys land on the same shard.
 
-    `cols` is (lanes * n_shards, n, c). The destination shard is
+    `cols` is (lanes * local_shards, n, c). The destination shard is
     hash(key) % n_shards; stage k routes along mesh axis k (outermost
     first) by the destination's coordinate on that axis, so traffic over
     the outer axis happens exactly once. `key_idx` names the key COLUMNS
@@ -190,7 +267,7 @@ def shuffle_by_key(cols: torch.Tensor, valid: torch.Tensor,
     hierarchical mesh may need a larger bucket than the inner one.
 
     Returns (cols, valid, overflowed, need): `overflowed` and `need` are
-    (lanes * n_shards, n_stages) — stage k's drop flag and each shard's
+    (lanes * local_shards, n_stages) — stage k's drop flag and each shard's
     exact worst per-destination load at stage k — so an overflow regrows
     ONLY the overflowing stage's bucket.
     """
@@ -251,7 +328,7 @@ def distributed_mr_join(
 ):
     """Shuffle both sides by join key, then local Algorithm 1 per shard.
 
-    Both relations are sharded, (lanes * n_shards, cap, c): each shard
+    Both relations are sharded, (lanes * local_shards, cap, c): each shard
     holds an arbitrary horizontal slice of both and ends holding the join
     results for its hash range. Returns (Relation, local_total,
     overflowed-any-stage), each with the leading shard axis.
@@ -277,11 +354,13 @@ def make_distributed_join(mesh: ShardMesh, bucket_capacity: int,
                           join_capacity: int,
                           left_schema: tuple[str, ...],
                           right_schema: tuple[str, ...]):
-    """A join of two flat row-sharded relations ((n_shards * cap, c), row
-    block k on shard k) -> (flat result, per-shard totals, per-shard
-    overflow flags). The reference's `make_distributed_join_fn` is the
-    same function before jit; torch runs it eagerly, so one name does."""
-    s = mesh.n_shards
+    """A join of two flat row-sharded relations ((local_shards * cap, c),
+    row block k on this process's shard k: every block in one process,
+    a rank's own block across ranks) -> (flat result, per-shard totals,
+    per-shard overflow flags) of the same shards. The reference's
+    `make_distributed_join_fn` is the same function before jit; torch
+    runs it eagerly, so one name does."""
+    s = mesh.local_shards
 
     def shard(rel: Relation, schema) -> Relation:
         assert tuple(rel.schema) == tuple(schema), (rel.schema, schema)

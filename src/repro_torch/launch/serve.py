@@ -5,55 +5,101 @@ sparql — stand up the MapSQ engine + micro-batching server over LUBM data
          of each from concurrent client threads. The engine runs on the
          card; `--device cpu` runs it on the CPU instead. `--shards N`
          opens the store subject-hash sharded over N shards, all held on
-         the one device (ShardedQueryEngine).
+         the one device (ShardedQueryEngine). Started as N ranks by a
+         launcher, one shard per rank:
+
+           python -m torch.distributed.run --standalone --nproc-per-node N \\
+               -m repro_torch.launch.serve --mode sparql --shards N \\
+               [--device cpu]
+
+         rank 0 serves and the others follow it (NCCL between cards, gloo
+         on the CPU; `--backend gloo` lets the ranks share one card).
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
+import os
 import threading
 
 
+def rows_digest(rows) -> str:
+    """A result's row multiset as a short sha1 (row order aside), to hold
+    one server's answers against another's."""
+    key = sorted(sorted(r.items()) for r in rows)
+    return hashlib.sha1(repr(key).encode()).hexdigest()[:12]
+
+
 def serve_sparql(scale: int, n_queries: int, device: str | None = None,
-                 shards: int = 0) -> None:
+                 shards: int = 0, backend: str | None = None) -> None:
     """`shards > 0` opens the store SHARDED: subject-hash partitioned over
     `shards` shards, queries served by the distributed executor (one
-    sharded dispatch per warm query)."""
+    sharded dispatch per warm query). Under a launcher (WORLD_SIZE set)
+    each of the `shards` ranks holds one shard."""
     from repro_torch.serve.sparql_server import SPARQLServer
     from repro_torch.sparql.engine import QueryEngine, ShardedQueryEngine
     from repro_torch.sparql.lubm import QUERIES, generate
 
-    store = generate(scale=scale)
-    print(f"LUBM-ish store: {len(store)} triples")
-    if shards > 0:
-        from repro_torch.sparql.sharded_store import shard_store
+    ranks = None
+    if "WORLD_SIZE" in os.environ:
+        from repro_torch.core.ranks import init_ranks
 
-        sharded = shard_store(store, shards)
-        print(f"sharded over {shards} shard(s): "
-              f"per-shard triples {sharded.shard_sizes()}")
-        engine: QueryEngine = ShardedQueryEngine(sharded, device=device)
-    else:
-        engine = QueryEngine(store, device=device)
-    srv = SPARQLServer(engine)
-    results = {}
-
-    def ask(name, text):
-        results[name] = srv.query(text)
-
-    threads = [
-        threading.Thread(target=ask, args=(f"{name}#{i}", text))
-        for i in range(n_queries)
-        for name, text in QUERIES.items()
-    ]
+        world = int(os.environ["WORLD_SIZE"])
+        if shards != world:
+            raise SystemExit(
+                f"--shards {shards} under a launcher of {world} ranks: one "
+                "shard per rank"
+            )
+        ranks = init_ranks(device=device, backend=backend)
     try:
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        for name in sorted(results):
-            print(f"{name}: {len(results[name])} rows")
-        print("server stats:", srv.stats())
+        store = generate(scale=scale)
+        lead = ranks is None or ranks.rank == 0
+        if lead:
+            print(f"LUBM-ish store: {len(store)} triples")
+        if shards > 0:
+            from repro_torch.sparql.sharded_store import shard_store
+
+            sharded = shard_store(store, shards)
+            engine: QueryEngine = ShardedQueryEngine(
+                sharded, device=device, ranks=ranks
+            )
+            if lead:
+                where = ("one per rank, backend " + ranks.backend
+                         if ranks is not None else "on one device")
+                print(f"sharded over {shards} shard(s), {where}: "
+                      f"per-shard triples {sharded.shard_sizes()}")
+            else:
+                engine.follow()
+                return
+        else:
+            engine = QueryEngine(store, device=device)
+        srv = SPARQLServer(engine)
+        results = {}
+
+        def ask(name, text):
+            results[name] = srv.query(text)
+
+        threads = [
+            threading.Thread(target=ask, args=(f"{name}#{i}", text))
+            for i in range(n_queries)
+            for name, text in QUERIES.items()
+        ]
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            for name in sorted(results):
+                rows = results[name].rows
+                print(f"{name}: {len(rows)} rows, sha1 {rows_digest(rows)}")
+            print("server stats:", srv.stats())
+        finally:
+            srv.close()
+            if ranks is not None:
+                engine.close()
     finally:
-        srv.close()
+        if ranks is not None:
+            ranks.close()
 
 
 def main() -> None:
@@ -62,12 +108,18 @@ def main() -> None:
     ap.add_argument("--scale", type=int, default=2)
     ap.add_argument("--n-queries", type=int, default=4)
     ap.add_argument("--device", default=None,
-                    help="torch device to run on (default: the card)")
+                    help="torch device to run on (default: the card; under "
+                         "a launcher cuda:LOCAL_RANK)")
     ap.add_argument("--shards", type=int, default=0,
                     help="open the store sharded over this many shards "
-                         "(0 = single-device store)")
+                         "(0 = single-device store); under a launcher, "
+                         "the number of ranks")
+    ap.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                    help="under a launcher: the ranks' backend (default: "
+                         "NCCL on cards, gloo on the CPU)")
     args = ap.parse_args()
-    serve_sparql(args.scale, args.n_queries, args.device, args.shards)
+    serve_sparql(args.scale, args.n_queries, args.device, args.shards,
+                 args.backend)
 
 
 if __name__ == "__main__":

@@ -53,13 +53,15 @@ stages its scans on the engine's device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import logging
 import pathlib
 import threading
 import time
 from collections import OrderedDict
-from typing import ClassVar, NamedTuple
+from typing import TYPE_CHECKING, ClassVar, NamedTuple
 
 import numpy as np
 import torch
@@ -76,6 +78,11 @@ from repro_torch.sparql import algebra, optimizer
 from repro_torch.sparql.parser import Query, UpdateRequest, parse, parse_update
 from repro_torch.core.plan_ir import next_pow2
 from repro_torch.sparql.store import StoreStatistics, TripleStore
+
+if TYPE_CHECKING:
+    from repro_torch.core.ranks import RankContext
+
+log = logging.getLogger(__name__)
 
 # LIMIT stand-in when only OFFSET was given (far above max_capacity, safe
 # from int32 overflow in `offset + limit`).
@@ -470,11 +477,15 @@ class PreparedQuery:
     shared by every handle (and every client) with the same plan shape.
     """
 
-    def __init__(self, engine: "QueryEngine", text: str, query: Query):
+    def __init__(self, engine: "QueryEngine", text: str, query: Query,
+                 program: "_Program | None" = None):
         self.engine = engine
         self.text = text
         self.query = query
-        self._program = engine._build_program(query)
+        # a follower rank takes rank 0's program (ShardedQueryEngine.follow)
+        self._program = (
+            engine._build_program(query) if program is None else program
+        )
         self._batch_ctx: _BatchCtx | None = None  # run_batch staging cache
         self.stats = ExecStats()  # accumulated across runs
         self.last_stats: ExecStats | None = None
@@ -500,7 +511,8 @@ class PreparedQuery:
         return True
 
     def run(self, trace=None) -> ResultSet:
-        return self._run_pending(trace).resolve()
+        with self.engine._leading("run", [self]):
+            return self._run_pending(trace).resolve()
 
     def _run_pending(self, trace=None) -> PendingDecode:
         """Dispatch the query, returning its result as a PendingDecode:
@@ -737,19 +749,21 @@ class QueryEngine:
         entries = [
             self._entry_jsonable(e) for e in self.plan_cache.entries()
         ]
-        pathlib.Path(path).write_text(
-            json.dumps(
-                {
-                    "version": 3,
-                    # the statistics catalog (incl. per-predicate degree
-                    # skew) rides along so a restarted process makes the
-                    # SAME backend decisions — shapes keep hashing to the
-                    # saved signatures even if it recomputes nothing
-                    "statistics": self.store.statistics.to_jsonable(),
-                    "entries": entries,
-                }
+        with self._leading("save_cache", entries):
+            pathlib.Path(path).write_text(
+                json.dumps(
+                    {
+                        "version": 3,
+                        # the statistics catalog (incl. per-predicate
+                        # degree skew) rides along so a restarted process
+                        # makes the SAME backend decisions — shapes keep
+                        # hashing to the saved signatures even if it
+                        # recomputes nothing
+                        "statistics": self.store.statistics.to_jsonable(),
+                        "entries": entries,
+                    }
+                )
             )
-        )
         return len(entries)
 
     def _entry_jsonable(self, e: PlanCacheEntry) -> dict:
@@ -761,6 +775,13 @@ class QueryEngine:
             "widths": list(e.widths()),
             "layouts": [[w, list(axes)] for w, axes in e.layouts()],
         }
+
+    def _leading(self, method: str, arg):
+        """The context of a public call that every rank must make: a no-op
+        here; ShardedQueryEngine's rank 0 sends the call to its followers
+        first (its `arg`: the call's prepared queries, program, text or
+        cache entries)."""
+        return contextlib.nullcontext()
 
     # -- public API --------------------------------------------------------
     def prepare(self, text: str, trace=None) -> PreparedQuery:
@@ -780,7 +801,9 @@ class QueryEngine:
         """Run a parsed query; the result Relation carries the projected
         (and DISTINCT-deduplicated, filtered, sliced) bindings."""
         stats = ExecStats()
-        rel = self._execute_program(self._build_program(q), stats)
+        prog = self._build_program(q)
+        with self._leading("execute", prog):
+            rel = self._execute_program(prog, stats)
         return rel, stats
 
     def explain(self, text: str, analyze: bool = False) -> str:
@@ -798,7 +821,7 @@ class QueryEngine:
         a pattern outgrows its bucket."""
         req: UpdateRequest = parse_update(text)
         inserted = deleted = 0
-        with self.store.snapshot_lock():
+        with self._leading("update", text), self.store.snapshot_lock():
             for op in req.ops:
                 rows = [(tp.s, tp.p, tp.o) for tp in op.triples]
                 if isinstance(op, algebra.InsertData):
@@ -847,7 +870,8 @@ class QueryEngine:
         """run_batch with per-query error isolation: each slot is either a
         ResultSet or the exception that query raised (the server's batch
         path relies on one bad query never failing its batchmates)."""
-        return self._run_batch_impl(prepared, defer=False)
+        with self._leading("run_batch", prepared):
+            return self._run_batch_impl(prepared, defer=False)
 
     def run_batch_pipelined(
         self, prepared: list[PreparedQuery], traces: "list | None" = None
@@ -859,7 +883,8 @@ class QueryEngine:
         `.resolve()` may run on any thread. The batcher thread returns as
         soon as device work is enqueued, so dispatch of batch k+1 overlaps
         decode of batch k on the decode pool."""
-        return self._run_batch_impl(prepared, defer=True, traces=traces)
+        with self._leading("run_batch", prepared):
+            return self._run_batch_impl(prepared, defer=True, traces=traces)
 
     def _run_batch_impl(
         self, prepared: list[PreparedQuery], defer: bool,
@@ -1576,10 +1601,7 @@ class QueryEngine:
         Staging runs under the store's snapshot lock so every scan reflects
         ONE store version even while concurrent updates land."""
         with self.store.snapshot_lock():
-            scans = tuple(
-                self.store.match_pattern_device(tp, self.device)
-                for tp in prog.patterns
-            )
+            scans = tuple(self._device_scan(tp) for tp in prog.patterns)
         schemas = tuple(s.schema for s in scans)
         rename = plan_ir.canonical_renaming(schemas)
         inverse = {c: o for o, c in rename.items()}
@@ -1591,6 +1613,11 @@ class QueryEngine:
             prog, schemas, self._scan_caps(scans), rename
         )
         return canon_scans, shape, inverse
+
+    def _device_scan(self, tp: TriplePattern) -> Relation:
+        """A pattern's scan staged on the engine's device (the sharded
+        engine's ranks stage their own shard's block)."""
+        return self.store.match_pattern_device(tp, self.device)
 
     def _scan_caps(
         self, scans: tuple[Relation, ...]
@@ -2051,6 +2078,10 @@ class QueryEngine:
 
 
 
+class LockstepError(RuntimeError):
+    """A follower rank found that it no longer makes rank 0's calls."""
+
+
 class _ShardAcct(NamedTuple):
     """A sharded dispatch's accounting on the host, shard (and lane) axes
     leading, slot last: exact join totals, join overflow flags, exact
@@ -2062,15 +2093,21 @@ class _ShardAcct(NamedTuple):
     sh_flags: np.ndarray
 
     @classmethod
-    def fetch(cls, res) -> "_ShardAcct":
+    def fetch(cls, res, mesh: "dj.ShardMesh") -> "_ShardAcct":
         """Everything in ONE device->host copy: the dispatch's single
-        host sync."""
+        host sync. The program's accounting holds this process's shards;
+        across ranks one all_gather of the packed accounting first, so
+        every rank sees every shard's totals and flags."""
         n_j = res.totals.shape[-1]
         n_s = res.shuffle_needs.shape[-1]
         packed = torch.cat(
             [res.totals, res.overflows.to(torch.int32),
              res.shuffle_needs, res.shuffle_flags.to(torch.int32)], -1,
-        ).cpu().numpy()
+        )
+        k = packed.shape[-1]
+        packed = dj.gather_shards(
+            packed.reshape(packed.shape[:-1].numel(), k), mesh
+        ).reshape(*packed.shape[:-2], mesh.n_shards, k).cpu().numpy()
         cut = np.cumsum([n_j, n_j, n_s])
         totals, flags, needs, sh_flags = np.split(packed, cut, axis=-1)
         return cls(totals, flags.astype(bool), needs, sh_flags.astype(bool))
@@ -2112,15 +2149,29 @@ class ShardedQueryEngine(QueryEngine):
         back with the dispatch, recompiles, and retries — the
         single-device discipline per shard.
 
-    Every shard lives on the engine's one device, along an explicit shard
-    axis (core/distributed.py). `mesh=None` builds one axis `axis_name`
-    of `store.n_shards` shards (the reference sizes its default mesh by
-    the device count instead). Warm queries are exactly one dispatch and
-    zero compiles, same as the base engine.
+    Where the shards live is the caller's choice:
+
+      * `ranks=None`: every shard on the engine's one device, along an
+        explicit shard axis (core/distributed.py); `mesh=None` builds one
+        axis `axis_name` of `store.n_shards` shards;
+      * `ranks=init_ranks(...)` (core/ranks.py): one shard per process,
+        the reference's one shard per device. The mesh is the ranks'
+        (`mesh=None`: one axis of every rank), the store's shard count
+        must equal the world size, each rank stages its own shard's scans
+        and the exchanges are `torch.distributed` collectives. Rank 0
+        leads: each public call (PreparedQuery.run, execute, run_batch*,
+        update, save_cache) is first sent to the other ranks, which run
+        `follow()` and make the same call, until rank 0's `close()`.
+        Only rank 0 decodes rows; every rank returns the same arrays,
+        equal to the one-process engine's.
+
+    Warm queries are exactly one dispatch and zero compiles, same as the
+    base engine.
     """
 
     mesh: "dj.ShardMesh | None" = None
     axis_name: str = "shards"
+    ranks: "RankContext | None" = None
     # cross-shape padded stacking is single-device only: near-miss shapes
     # stay per-shape groups here
     pad_stacking: ClassVar[bool] = False
@@ -2134,6 +2185,8 @@ class ShardedQueryEngine(QueryEngine):
                 f"(got {type(self.store).__name__}); wrap a TripleStore "
                 "with sparql.sharded_store.shard_store(store, n_shards)"
             )
+        if self.ranks is not None:
+            self._take_ranks()
         if self.mesh is None:
             self.mesh = dj.make_mesh((self.store.n_shards,), (self.axis_name,))
         self.axis_names = tuple(self.mesh.axis_names)
@@ -2148,6 +2201,12 @@ class ShardedQueryEngine(QueryEngine):
                 "sharded execution is compiled-only (compiled=True)"
             )
         super().__post_init__()
+        # this rank's own shard (None: every shard here), and lockstep:
+        # one thread at a time sends a call and makes it (see _leading)
+        self._own_shard = None if self.ranks is None else self.ranks.rank
+        self._lead_lock = threading.RLock()
+        self._lead_depth = 0
+        self._following = False
         # shuffle bucket signatures persisted by a previous process (the
         # sharded extension of the warmup file)
         self._warm_shuffle: dict[plan_ir.PlanShape, tuple[int, ...]] = {}
@@ -2160,14 +2219,139 @@ class ShardedQueryEngine(QueryEngine):
                         shape = plan_ir.shape_from_jsonable(e["shape"])
                         self._warm_shuffle[shape] = sh
 
+    def _take_ranks(self) -> None:
+        """One shard per rank: the ranks' mesh and device."""
+        mesh = self.ranks.mesh
+        if self.mesh is not None and self.mesh != mesh:
+            raise ValueError(
+                f"mesh {self.mesh.axis_sizes} is not the ranks' mesh "
+                f"{mesh.axis_sizes}"
+            )
+        self.mesh = mesh
+        dev = self.ranks.device
+        if self.device is not None:
+            asked = torch.device(self.device)
+            if asked.type != dev.type or asked.index not in (None, dev.index):
+                raise ValueError(f"device {asked} is not this rank's {dev}")
+        self.device = dev
+
+    # -- lockstep across ranks ---------------------------------------------
+    def _leading(self, method: str, arg):
+        if self.ranks is None:
+            return contextlib.nullcontext()
+        return self._lead(method, arg)
+
+    @contextlib.contextmanager
+    def _lead(self, method: str, arg):
+        """Rank 0 sends the call to every follower before making it (a
+        nested public call is part of the outer one and sends nothing).
+        Prepared queries travel as (text, program): a follower runs rank
+        0's plan, whatever the store's statistics were when it was made."""
+        if self.ranks.rank != 0 and not self._following:
+            raise RuntimeError(
+                f"rank {self.ranks.rank} follows rank 0's calls: run "
+                "engine.follow() there"
+            )
+        with self._lead_lock:
+            if self._lead_depth == 0 and not self._following:
+                if method in ("run", "run_batch"):
+                    arg = [(pq.text, pq._program) for pq in arg]
+                self.ranks.broadcast((method, arg))
+            self._lead_depth += 1
+            try:
+                yield
+            finally:
+                self._lead_depth -= 1
+
+    def follow(self, on_call=None) -> int:
+        """A follower rank's loop: receive rank 0's calls in order and make
+        each one, until rank 0's close(). A call that fails here failed
+        on rank 0 too, at the same point (every host decision runs on the
+        same gathered numbers), so the loop goes on, as rank 0's caller
+        does. `on_call(method, outcome)` sees each call's outcome: its
+        runs' ExecStats (a list), an UpdateResult, None, or the exception
+        raised. Returns the number of calls made."""
+        if self.ranks is None or self.ranks.rank == 0:
+            raise RuntimeError("only a rank other than 0 follows")
+        n = 0
+        self._following = True
+        try:
+            while True:
+                method, arg = self.ranks.broadcast()
+                if method == "close":
+                    return n
+                n += 1
+                try:
+                    outcome = self._follow_call(method, arg)
+                except LockstepError:
+                    raise
+                except Exception as e:  # rank 0 raised it to its caller
+                    log.info("rank %d: %s failed as on rank 0: %r",
+                             self.ranks.rank, method, e)
+                    outcome = e
+                if on_call is not None:
+                    on_call(method, outcome)
+        finally:
+            self._following = False
+
+    def _follow_call(self, method: str, arg):
+        def mirror(text: str, prog: _Program) -> PreparedQuery:
+            return PreparedQuery(self, text, prog.query, program=prog)
+
+        if method == "run":
+            ((text, prog),) = arg
+            return [mirror(text, prog)._run_pending().stats]  # no decode
+        if method == "run_batch":
+            outs = self._run_batch_impl([mirror(*a) for a in arg], defer=True)
+            return [o if isinstance(o, Exception) else o.stats for o in outs]
+        if method == "execute":
+            stats = ExecStats()
+            self._execute_program(arg, stats)
+            return [stats]
+        if method == "update":
+            return self.update(arg)
+        if method == "save_cache":
+            # rank 0 writes the file; the same cache here, or the ranks
+            # have left lockstep
+            mine = [self._entry_jsonable(e) for e in self.plan_cache.entries()]
+            if mine != arg:
+                raise LockstepError(
+                    f"rank {self.ranks.rank}'s plan cache differs from "
+                    "rank 0's"
+                )
+            return None
+        raise LockstepError(f"unknown call {method!r}")
+
+    def close(self) -> None:
+        """Rank 0: end the followers' loops (its last call). Nothing to do
+        with every shard in this process."""
+        if self.ranks is not None and self.ranks.rank == 0:
+            with self._lead_lock:
+                self.ranks.broadcast(("close", None))
+
     # -- planning ----------------------------------------------------------
     def _scan_caps(
         self, scans: tuple[Relation, ...]
     ) -> tuple[int, ...]:
         """Capacities entering the PlanShape are the PER-SHARD row
-        buckets (the flat scan buffer holds n_shards equal blocks, so
-        its per-shard slice is capacity // n_shards)."""
-        return tuple(s.capacity // self.n_shards for s in scans)
+        buckets (the flat scan buffer holds local_shards equal blocks,
+        so its per-shard slice is capacity // local_shards)."""
+        return tuple(s.capacity // self.mesh.local_shards for s in scans)
+
+    def _device_scan(self, tp: TriplePattern) -> Relation:
+        return self.store.match_pattern_device(
+            tp, self.device, self._own_shard
+        )
+
+    def _all_shards(self, rel: Relation) -> Relation:
+        """A scan's every shard block, flat in shard order: the staged
+        buffer itself in one process, all-gathered across ranks."""
+        if self.ranks is None:
+            return rel
+        g = dj.gather_relation(
+            Relation(rel.schema, rel.cols[None], rel.valid[None]), self.mesh
+        )
+        return Relation(rel.schema, g.cols[0], g.valid[0])
 
     def _scan_parts(
         self,
@@ -2216,8 +2400,10 @@ class ShardedQueryEngine(QueryEngine):
         if join_caps is None or len(join_caps) != shape.n_joins():
             eager_stats = ExecStats()
             t0 = time.perf_counter()
+            # every rank calibrates on every shard's rows
             _, totals = self._eval_shape_eager(
-                shape, canon_scans, prog, eager_stats
+                shape, tuple(self._all_shards(s) for s in canon_scans), prog,
+                eager_stats,
             )
             if trace is not None:
                 trace.add_span(
@@ -2318,7 +2504,7 @@ class ShardedQueryEngine(QueryEngine):
             stats.peak_join_bucket = max(
                 stats.peak_join_bucket, max(caps) if caps else 0
             )
-            acct = _ShardAcct.fetch(res)
+            acct = _ShardAcct.fetch(res, self.mesh)
             t1 = self._device_tick(stats, t0)
             if trace is not None:
                 trace.add_span("dispatch", t0, t1, n_shards=self.n_shards)
@@ -2362,13 +2548,15 @@ class ShardedQueryEngine(QueryEngine):
             for j, schema in enumerate(shape.scan_schemas):
                 tps = tuple(c.prog.patterns[j] for c in lanes)
                 if len({self.store._scan_key(tp) for tp in tps}) == 1:
-                    rel = self.store.match_pattern_device(tps[0], self.device)
+                    rel = self._device_scan(tps[0])
                     scans.append(Relation(schema, rel.cols, rel.valid))
                     axes.append(None)
                 else:
                     scans.append(Relation(
                         schema,
-                        *self.store.stacked_scan_device(tps, self.device),
+                        *self.store.stacked_scan_device(
+                            tps, self.device, self._own_shard
+                        ),
                     ))
                     axes.append(0)
             version = self.store.version
@@ -2435,7 +2623,7 @@ class ShardedQueryEngine(QueryEngine):
                     inp.scans, inp.consts_i, inp.consts_f, inp.num_vals,
                     inp.active,
                 )
-                acct = _ShardAcct.fetch(res)  # every (lane, shard) pair
+                acct = _ShardAcct.fetch(res, self.mesh)  # every (lane, shard)
                 events.append(("dispatch", t0, self._device_tick(stats, t0)))
                 if not acct.overflowed():
                     break

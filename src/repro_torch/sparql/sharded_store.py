@@ -14,9 +14,13 @@ bucket (the max across shards — the sharded program needs equal static
 shapes per shard) and uploads a flat (n_shards * cap, n_cols) device
 buffer whose row blocks are the per-shard partitions, in shard order. The
 sharded executor views it as (n_shards, cap, n_cols): every shard lives on
-the one device, along an explicit leading shard axis. Scan data is
-uploaded once per pattern structure and never re-staged (the same
-upload-once discipline as the single-device store, now per shard).
+the one device, along an explicit leading shard axis. With one shard per
+process (core/ranks.py) every rank keeps every shard's host store, so
+the bucket, the statistics and the write routing agree on every rank
+with no communication, and uploads only its own `shard`'s block at that
+bucket. Scan data is uploaded once per pattern structure and never
+re-staged (the same upload-once discipline as the single-device store,
+now per shard).
 
 The `statistics` catalog the cost-based optimizer plans against is the
 per-shard catalogs aggregated by `StoreStatistics.merge` — exact on all
@@ -256,17 +260,20 @@ class ShardedTripleStore:
         while len(self._device_cache) > self.scan_cache_entries:
             self._device_cache.popitem(last=False)
 
-    def match_pattern_device(self, tp: TriplePattern, device) -> Relation:
+    def match_pattern_device(self, tp: TriplePattern, device,
+                             shard: "int | None" = None) -> Relation:
         """Flat stacked per-shard partial match at one shared bucket.
 
         Row block k (`[k * cap, (k + 1) * cap)`) holds shard k's matches,
-        padded to cap = bucket_capacity(max per-shard count). Device
-        tensors are uploaded once per pattern structure and device and
-        shared across queries (the Relation rebinds only the schema
-        names) — the upload-once-per-shard contract.
+        padded to cap = bucket_capacity(max per-shard count). With
+        `shard`, only that shard's block (cap rows) is uploaded: a rank's
+        own partition. Device tensors are uploaded once per pattern
+        structure, device and shard and shared across queries (the
+        Relation rebinds only the schema names) — the upload-once-per-
+        shard contract.
         """
         key = self._scan_key(tp)
-        cache_key = (str(torch.device(device)), key)
+        cache_key = (str(torch.device(device)), shard, key)
         entry = self._lookup(cache_key)
         if entry is None:
             self._scan_misses += 1
@@ -280,8 +287,10 @@ class ShardedTripleStore:
             )
             self._cap_floor[key] = cap
             n_cols = per_shard[0][0].shape[1]
-            cols = np.zeros((self.n_shards * cap, n_cols), np.int32)
-            valid = np.zeros((self.n_shards * cap,), bool)
+            if shard is not None:
+                per_shard = [per_shard[shard]]
+            cols = np.zeros((len(per_shard) * cap, n_cols), np.int32)
+            valid = np.zeros((len(per_shard) * cap,), bool)
             for k, (mat, v) in enumerate(per_shard):
                 cols[k * cap : k * cap + len(mat)] = mat
                 valid[k * cap : k * cap + len(mat)] = v
@@ -305,15 +314,17 @@ class ShardedTripleStore:
         return self.shards[0]._scan_key(tp)
 
     def stacked_scan_device(
-        self, tps: "tuple[TriplePattern, ...]", device
+        self, tps: "tuple[TriplePattern, ...]", device,
+        shard: "int | None" = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """One scan position of a stacked sharded batch: (width,
         n_shards * cap, n_cols) cols and (width, n_shards * cap) valid —
-        each lane's flat per-shard blocks stacked on a leading lane axis.
+        each lane's flat per-shard blocks stacked on a leading lane axis
+        (with `shard`, that shard's block alone: (width, cap, ...)).
         Lanes share one capacity bucket by construction (capacity is part
         of the PlanShape they group on). Cached by the lane-key tuple at
         the current store version, like the flat scans."""
-        key = (str(torch.device(device)), "stacked") + tuple(
+        key = (str(torch.device(device)), shard, "stacked") + tuple(
             self._scan_key(tp) for tp in tps
         )
         entry = self._lookup(key)
@@ -321,7 +332,7 @@ class ShardedTripleStore:
             self._scan_hits += 1
             return entry
         self._scan_misses += 1
-        rels = [self.match_pattern_device(tp, device) for tp in tps]
+        rels = [self.match_pattern_device(tp, device, shard) for tp in tps]
         entry = (
             torch.stack([r.cols for r in rels]),
             torch.stack([r.valid for r in rels]),

@@ -763,3 +763,77 @@ def test_cumsum_i32_on_the_card_equals_torch(cuda, shape):
     want = torch.cumsum(x, dim=-1, dtype=torch.int32)
     assert torch.equal(torch.func.vmap(cumsum_i32)(x), want)
     assert torch.equal(cumsum_i32(x[0]), want[0])
+
+
+# ------------------------------------ the sharded engine across processes
+
+
+@pytest.mark.parametrize("world,backend", [(2, "gloo"), (1, "nccl")])
+def test_ranks_on_the_card_equal_the_cpu(cuda, tmp_path, world, backend):
+    """One shard per rank on cuda:0 (two gloo ranks share the card; NCCL
+    at world 1): the exchanges equal the one-process functions on the
+    CPU; the engine's arrays, every run's ExecStats on every rank, the
+    plan caches, the retry, the MemoryError, run_batch and an update
+    equal the one-process CPU engine's, call for call."""
+    import numpy as np
+
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.sparql import lubm
+    from repro_torch.sparql.engine import ShardedQueryEngine
+    from repro_torch.sparql.sharded_store import shard_store
+    from test_torch_dist_ranks import (
+        LANES, SEEDS, drive, engine_script, exchange_outputs, join_outputs,
+        run_ranks, save_store,
+    )
+
+    mesh = make_mesh((world,), ("shards",))
+    got = run_ranks(tmp_path, world, "exchange_prog", device="cuda:0",
+                    backend=backend)
+    for seed in SEEDS:
+        want = exchange_outputs(mesh, seed)
+        for r, rec in enumerate(got):
+            for key, w in want.items():
+                g = rec[seed]["exchanges"][key]
+                for gi, wi in zip(g if isinstance(g, tuple) else (g,),
+                                  w if isinstance(w, tuple) else (w,)):
+                    if key not in ("gather_shards", "gather_relation"):
+                        wi = wi.reshape(LANES, world, *wi.shape[1:])[:, r]
+                    assert np.array_equal(gi, wi), key
+        cols, valid, totals, _ = join_outputs(mesh, seed)
+        cap = cols.shape[0] // world
+        for r, rec in enumerate(got):
+            assert np.array_equal(rec[seed]["join"][0],
+                                  cols[r * cap:(r + 1) * cap])
+            assert np.array_equal(rec[seed]["join"][2], totals[r:r + 1])
+
+    base = lubm.generate(scale=1, join_shapes=True, skew_shapes=True)
+    queries = {**lubm.QUERIES, **lubm.OPERATOR_QUERIES, **lubm.S_QUERIES}
+    new = "<http://example.org/NewStudent>"
+    update = lubm.PREFIX + (
+        f"INSERT DATA {{ {new} ub:takesCourse "
+        f"<http://example.org/Course0_0_0> . }}")
+    batch = [lubm.OPERATOR_QUERIES["F1"].replace("prof_0_0_0", v)
+             for v in ("prof_0_0_0", "prof_1_0_0", "nobody")]
+
+    def make_engine(warmup, max_capacity):
+        kw = {} if max_capacity is None else {"max_capacity": max_capacity}
+        return ShardedQueryEngine(shard_store(base, world), device="cpu",
+                                  mesh=mesh, warmup_path=warmup, **kw)
+
+    script = engine_script(tmp_path, make_engine, queries, batch, update,
+                           lubm.QUERIES["Q1"], ("Q2", "Q9"))
+    one = drive(make_engine, script)
+    ranks = run_ranks(tmp_path, world, "engine_prog",
+                      save_store(base, tmp_path / "store.npz"),
+                      dict(script, save=str(tmp_path / "ranks.json")),
+                      device="cuda:0", backend=backend)
+    for name, ref in one["queries"].items():
+        rec = ranks[0]["queries"][name]
+        assert np.array_equal(rec["cols"], ref["cols"]), name
+        assert np.array_equal(rec["valid"], ref["valid"]), name
+        assert rec["rows"] == ref["rows"], name
+    for rec in ranks:
+        assert rec["calls"] == one["calls"]
+        assert rec["engines"] == one["engines"]
+    assert ranks[0]["batches"] == one["batches"]
+    assert ranks[0]["after_update"] == one["after_update"]

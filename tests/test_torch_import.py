@@ -38,6 +38,7 @@ def test_port_imports_without_jax_or_reference():
         "repro_torch.core.distributed",
         "repro_torch.core.dist_executor",
         "repro_torch.sparql.sharded_store",
+        "repro_torch.core.ranks",
     ):
         assert m in mods, m
     code = (
