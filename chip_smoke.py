@@ -101,7 +101,21 @@ Phases (any failure ends the run with a non-zero exit and no "ok" line):
      "error"; and `serve --shards 4` under torch.distributed.run (gloo on
      the card), every answer's row multiset the one-process engine's.
      Any rank's failure or hang fails the phase.
- 10. summary — the stacked-forms line, the kernels line, the card line,
+ 10. LM serving — the port's transformer through Generator (prefill, then
+     greedy decode over a static KV cache), no kernel of its own: (a) the
+     reduced config of each of the five LM archs, float32 and bf16, the
+     same seeded weights on the card and on the CPU port (float32: logits
+     within rtol/atol 1e-4 and greedy tokens equal, decoded with sync
+     debugging at "error"; bf16: logits within 5e-2); (b) gemma3-1b at
+     full width and depth in bf16, 2 x 1024 prompt tokens and 64 new, the
+     decode loop with sync debugging at "error", prefill ms, decode ms per
+     token (p50 of 64 steps), tokens/s and peak memory beside their bounds,
+     launches and card busy time (profiler) of a decode step and of a
+     prefill, and the cached decode's logits at steps 1, 16 and 64 within
+     0.25 of a cacheless forward over the grown sequence; (c) gemma3-1b at full width with 2 layers in float32, 2 x
+     64 prompts and 8 new tokens, card against the CPU port (tokens equal,
+     or a flip only at a top-two gap within the tolerance), TF32 off.
+ 11. summary — the stacked-forms line, the kernels line, the card line,
      then the result line.
 
 Each of the paths of phases 3, 5, 6, 7, 8 and 9 runs with the launch counts set
@@ -110,6 +124,10 @@ kernels line reports each kernel's launches from the path that runs it.
 
 Needs the repository's src/ beside it and one CUDA card; exits non-zero
 without them.
+
+    python3 chip_smoke.py --lm-only
+
+runs phase 10 alone (no kernel build, no result line).
 
     python3 chip_smoke.py --kernels-only [--src OTHER/src]
 
@@ -2140,6 +2158,305 @@ def nccl_only(dev) -> dict:
                        {"store": shard_store(store, SHARDS)}, nccl_only=True)
 
 
+# -- phase 10: LM serving -----------------------------------------------------
+
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), at 700 W
+BF16_FLOPS_PER_S = 989e12
+LM_F32_TOL = dict(rtol=1e-4, atol=1e-4)  # float32 logits, card vs CPU
+LM_BF16_ATOL = 5e-2  # bf16 logits of the reduced configs, card vs CPU
+# bf16 logits of gemma3-1b at full depth, cached decode vs cacheless
+# forward: the two round the residual stream to bf16 (eps 2^-8) apart at
+# each of 26 layers, and the logits spread about +-5 (unit-RMS hidden
+# against N(0, 1/d) embeddings), so a few ulps of the largest logits;
+# a wrong position, mask or cache row moves logits by O(1)
+LM_FULL_ATOL = 0.25
+LM_PROMPT, LM_NEW, LM_MAX_LEN = 1024, 64, 1088
+LM_CHECK_STEPS = (1, 16, 64)
+
+
+def lm_config(arch: str, **changes):
+    import dataclasses
+    import importlib
+
+    from repro_torch.configs.registry import ARCHS
+
+    return dataclasses.replace(importlib.import_module(ARCHS[arch]).CONFIG,
+                               **changes)
+
+
+def param_bytes(params: dict) -> int:
+    from repro_torch.models.transformer import _leaves
+
+    return sum(a.numel() * a.element_size() for _, a in _leaves(params))
+
+
+def generate_without_sync(gen, tokens, n_new: int):
+    """The Generator's device loop with sync debugging at "error": any
+    host sync inside prefill or decode raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = gen.generate_on_device(tokens, n_new)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out
+
+
+def lm_reduced(dev) -> dict:
+    """(a) The reduced config of every LM arch, float32 and bf16: the same
+    seeded weights (drawn on the CPU) on the card and on the CPU port."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch.train import reduced_lm
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.decode import Generator
+
+    out = {}
+    for arch in sorted(ARCHS):
+        vocab = 500 if arch == "granite-moe-3b-a800m" else 512
+        base = reduced_lm(lm_config(arch), vocab=vocab)
+        prompts = np.random.default_rng(len(arch)).integers(
+            0, vocab, (2, 32)).astype(np.int32)
+        tokens = torch.from_numpy(prompts)
+        for dt in (torch.float32, torch.bfloat16):
+            cfg = dataclasses.replace(base, dtype=dt)
+            params = T.init_params(torch.Generator().manual_seed(0), cfg)
+            card = Generator(cfg, params, device=dev, max_len=40)
+            with torch.inference_mode():
+                want = T.forward(params, tokens, cfg)[0]
+                got = T.forward(card.params, tokens.to(dev), cfg)[0].cpu()
+            name = f"{arch}/{str(dt).split('.')[-1]}"
+            if dt == torch.float32:
+                err = float_err(got, want, **LM_F32_TOL)
+                toks = generate_without_sync(card, tokens.to(dev), 8).cpu()
+                cpu = Generator(cfg, params, device="cpu", max_len=40)
+                check(torch.equal(toks, torch.from_numpy(
+                    cpu.generate(prompts, 8))),
+                    f"{name}: greedy tokens differ between card and CPU")
+            else:
+                err = float_err(got, want, rtol=0.0, atol=LM_BF16_ATOL)
+            out[name] = err
+            log(f"lm {name}: logits max abs err {err:.3g} card vs CPU")
+    return out
+
+
+def top_two_gap(logits) -> torch.Tensor:
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def card_work(breakdown) -> tuple:
+    """(launches, card busy ms) of one call, from `device_breakdown`."""
+    if not isinstance(breakdown, dict):
+        return breakdown, breakdown
+    return (sum(n for _, n in breakdown.values()),
+            round(sum(ms for ms, _ in breakdown.values()), 4))
+
+
+def lm_full_width(dev) -> dict:
+    """(b) gemma3-1b at full width and depth in bf16 on the card: 2 x 1024
+    prompt tokens, 64 new; the main path (Generator) with no host sync;
+    prefill and per-token decode times against their bounds; the cached
+    decode's logits against a cacheless forward over the grown sequence."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.decode import Generator
+
+    cfg = lm_config("gemma3-1b")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_bytes = param_bytes(params)
+    total, _ = T.count_params(cfg)
+    check(total == 999_826_048, f"gemma3-1b has {total} parameters")
+    tokens = torch.randint(0, cfg.vocab, (2, LM_PROMPT), dtype=torch.int32,
+                           device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    gen = Generator(cfg, params, device=dev, max_len=LM_MAX_LEN)
+    b = tokens.shape[0]
+
+    # the main path, twice: the first call pays cuBLAS's set-up
+    t = time.perf_counter()
+    first = generate_without_sync(gen, tokens, LM_NEW).cpu()
+    cold_s = time.perf_counter() - t
+    t = time.perf_counter()
+    again = generate_without_sync(gen, tokens, LM_NEW).cpu()
+    warm_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()  # weights + serving
+    check(first.shape == (b, LM_NEW) and bool((first >= 0).all())
+          and bool((first < cfg.vocab).all()), "generated tokens out of range")
+    log(f"lm gemma3-1b: generate {b} x {LM_PROMPT} + {LM_NEW}: cold "
+        f"{cold_s:.3f} s, warm {warm_s:.3f} s; the two runs' tokens "
+        f"{'equal' if torch.equal(first, again) else 'DIFFER'}")
+
+    # timed and checked run: prefill, then 64 decode steps, each step's
+    # logits kept at LM_CHECK_STEPS; CUDA events between the steps
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(LM_NEW + 2)]
+    held = {}
+    seq = [tokens]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        ev[0].record()
+        nxt, kc, vc = gen.start(tokens)
+        ev[1].record()
+        for i in range(1, LM_NEW + 1):
+            seq.append(nxt[:, None])
+            logits = T.decode_logits(gen.params, kc, vc, LM_PROMPT + i - 1,
+                                     nxt, cfg)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            ev[i + 1].record()
+            if i in LM_CHECK_STEPS:
+                held[i] = logits
+        torch.cuda.synchronize()
+        prefill_ms = ev[0].elapsed_time(ev[1])
+        step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(1, LM_NEW + 1)]
+        grown = torch.cat(seq, dim=1)
+        check(torch.equal(grown[:, LM_PROMPT:].cpu(), first),
+              "the timed decode's tokens differ from Generator.generate's")
+        # cacheless: one KV chunk over the whole grown sequence (the chunk
+        # rule refuses 1025-1088 tokens in 1024-token chunks)
+        flat = dataclasses.replace(cfg, kv_chunk=LM_MAX_LEN)
+        errs = {}
+        for i, logits in held.items():
+            full = T.forward(gen.params, grown[:, :LM_PROMPT + i], flat)[0]
+            want = full[:, -1]
+            errs[i] = float_err(logits, want, rtol=0.0, atol=LM_FULL_ATOL)
+            same = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
+            log(f"lm gemma3-1b step {i}: cached vs cacheless logits max abs "
+                f"err {errs[i]:.4f} (tol {LM_FULL_ATOL}), mean "
+                f"{float((logits.float() - want.float()).abs().mean()):.5f}, "
+                f"argmax agree {same:.2f}, |logit| max "
+                f"{float(want[:, :cfg.vocab].float().abs().max()):.2f}")
+            del full
+
+    # the kernels of one decode step (at the last position) and of one
+    # prefill: launches and card busy time a call
+    def one_step():
+        with torch.inference_mode():
+            T.decode_logits(gen.params, kc, vc, LM_MAX_LEN - 1, nxt, cfg)
+
+    def one_prefill():
+        with torch.inference_mode():
+            gen.start(tokens)
+
+    breakdown = device_breakdown(one_step)
+    launches, busy = card_work(breakdown)
+    pre_launches, pre_busy = card_work(device_breakdown(one_prefill, calls=2))
+
+    # bounds: prefill by its operations (2 N per token + causal attention)
+    # over the bf16 peak; a decode step by its bytes (every weight once,
+    # the cache rows written so far) over HBM
+    kv_row = 2 * cfg.n_layers * b * cfg.n_kv_heads * cfg.d_head * 2
+    prefill_flops = T.model_flops(cfg, "prefill", b, LM_PROMPT)
+    prefill_bytes = n_bytes + kv_row * LM_PROMPT
+    prefill_bound, prefill_by = max(
+        (prefill_flops / BF16_FLOPS_PER_S * 1e3, "operations"),
+        (prefill_bytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    mid = LM_PROMPT + LM_NEW // 2
+    decode_bytes = n_bytes + kv_row * mid
+    decode_flops = T.model_flops(cfg, "decode", b, mid)
+    decode_bound, decode_by = max(
+        (decode_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+        (decode_flops / BF16_FLOPS_PER_S * 1e3, "operations"))
+    p50 = statistics.median(step_ms)
+    res = {
+        "params": total, "param_bytes": n_bytes, "init_s": round(init_s, 3),
+        "prefill_ms": round(prefill_ms, 4),
+        "prefill_bound_ms": round(prefill_bound, 4),
+        "prefill_bound_by": prefill_by,
+        "decode_ms_p50": round(p50, 4),
+        "decode_ms_min": round(min(step_ms), 4),
+        "decode_ms_max": round(max(step_ms), 4),
+        "decode_bound_ms": round(decode_bound, 4), "decode_bound_by": decode_by,
+        "decode_tokens_per_s": round(b * 1e3 / p50, 2),
+        "tokens_per_s": round(b * LM_NEW * 1e3 / (prefill_ms + sum(step_ms)), 2),
+        "generate_warm_s": round(warm_s, 4), "generate_cold_s": round(cold_s, 4),
+        "peak_bytes": peak, "step_launches": launches, "step_busy_ms": busy,
+        "prefill_launches": pre_launches, "prefill_busy_ms": pre_busy,
+        "step_top_kernels": sorted(breakdown.items(), key=lambda kv: -kv[1][0])[:6]
+        if isinstance(breakdown, dict) else breakdown,
+        "cached_vs_cacheless_err": errs,
+    }
+    idle = (f"card idle {1 - busy / p50:.2f} of a step"
+            if isinstance(busy, float) else "card idle not measured")
+    log(f"lm gemma3-1b full width: prefill {prefill_ms:.3f} ms (bound "
+        f"{prefill_bound:.3f}, {res['prefill_bound_by']}); decode p50 "
+        f"{p50:.3f} ms/token step (bound {decode_bound:.3f}, {decode_by}), "
+        f"{res['decode_tokens_per_s']} tokens/s decode, "
+        f"{res['tokens_per_s']} tokens/s overall; peak {peak} bytes; "
+        f"{launches} launches and {busy} ms busy per decode step ({idle}); "
+        f"{pre_launches} launches and {pre_busy} ms busy per prefill")
+    del params, gen, kc, vc, held
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_cut_depth(dev) -> dict:
+    """(c) gemma3-1b at full width, 2 layers, float32: 2 x 64 prompts and 8
+    new tokens on the card against the CPU port, same weights. Tokens
+    equal; where a near-tie flips one, the CPU's top-two logit gap at
+    that step is within the float32 tolerance."""
+    import numpy as np
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.decode import Generator
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: a float32 comparison would mean nothing")
+    cfg = lm_config("gemma3-1b", n_layers=2, dtype=torch.float32)
+    params = T.init_params(torch.Generator().manual_seed(2), cfg)
+    prompts = np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32)
+    card = Generator(cfg, params, device=dev, max_len=72)
+    got = generate_without_sync(card, torch.from_numpy(prompts).to(dev), 8).cpu()
+    # the CPU port, step by step, keeping each step's logits
+    tokens = torch.from_numpy(prompts)
+    with torch.inference_mode():
+        want_logits = T.forward(params, tokens, cfg)[0]
+        card_logits = T.forward(card.params, tokens.to(dev), cfg)[0].cpu()
+        err = float_err(card_logits, want_logits, **LM_F32_TOL)
+        cpu = Generator(cfg, params, device="cpu", max_len=72)
+        nxt, kc, vc = cpu.start(tokens)
+        steps = [want_logits[:, -1]]
+        want = [nxt]
+        for i in range(1, 8):
+            logits = T.decode_logits(params, kc, vc, 64 + i - 1, nxt, cfg)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            steps.append(logits)
+            want.append(nxt)
+    want = torch.stack(want, dim=1)
+    flips = []
+    for row in range(want.shape[0]):
+        diff = (got[row] != want[row]).nonzero()
+        if len(diff):
+            j = int(diff[0])
+            gap = float(top_two_gap(steps[j][row]))
+            flips.append((row, j, gap))
+            check(gap <= 2 * LM_F32_TOL["atol"],
+                  f"cut-depth gemma3-1b row {row} step {j}: tokens differ "
+                  f"with a top-two gap of {gap}")
+    log(f"lm gemma3-1b 2 layers float32: logits max abs err {err:.3g} card "
+        f"vs CPU; tokens {'equal' if not flips else f'flipped at {flips}'}")
+    return {"logits_err": err, "flips": flips}
+
+
+def lm_phase(dev) -> dict:
+    t0 = time.perf_counter()
+    reduced = lm_reduced(dev)
+    full = lm_full_width(dev)
+    cut = lm_cut_depth(dev)
+    secs = time.perf_counter() - t0
+    log(f"phase 10 (LM serving): {secs:.1f} s")
+    return {"reduced_err": reduced, "gemma3_1b": full, "gemma3_1b_2l_f32": cut,
+            "seconds": round(secs, 1)}
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -2152,6 +2469,8 @@ def main(argv: list[str]) -> int:
                     help="the tree whose repro_torch to drive (default: "
                     "this checkout's src/); with --kernels-only, times an "
                     "earlier commit's kernels in the same call")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="phase 10 (LM serving) alone; no result line")
     ap.add_argument("--nccl-only", action="store_true",
                     help="phase 9's NCCL run alone (on a host of several "
                     "cards: one rank per card at scale 1000) with the "
@@ -2178,6 +2497,12 @@ def main(argv: list[str]) -> int:
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    if args.lm_only:
+        out = lm_phase(dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"lm": out}), flush=True)
+        print(card, flush=True)
+        return 0
     t = time.perf_counter()
     kernels.build_all()
     log(f"build: {len(kernels.all_sources())} kernel sources in "
@@ -2204,6 +2529,7 @@ def main(argv: list[str]) -> int:
     sharded_small_phase(dev)
     sharded = sharded_phase(dev, full)
     ranks = ranks_phase(dev, full, sharded)
+    lm = lm_phase(dev)
     for name, row in rows.items():
         row["launches"] = (full["launches"] | api_launches).get(name, 0)
         check(row["launches"] > 0, f"kernel {name} was not launched")
@@ -2212,7 +2538,7 @@ def main(argv: list[str]) -> int:
     del sharded["store"]
     print(json.dumps({"full_scale": full, "matrix": matrix,
                       "serving": serving, "sharded": sharded,
-                      "ranks": ranks}), flush=True)
+                      "ranks": ranks, "lm": lm}), flush=True)
     print(json.dumps({"stacked": stacked}), flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(card, flush=True)

@@ -1,4 +1,4 @@
-"""Serving launcher: `python -m repro_torch.launch.serve --mode sparql`.
+"""Serving launcher: `python -m repro_torch.launch.serve --mode sparql|lm`.
 
 sparql — stand up the MapSQ engine + micro-batching server over LUBM data
          and run the 5 benchmark queries through it, `--n-queries` copies
@@ -14,6 +14,9 @@ sparql — stand up the MapSQ engine + micro-batching server over LUBM data
 
          rank 0 serves and the others follow it (NCCL between cards, gloo
          on the CPU; `--backend gloo` lets the ranks share one card).
+lm     — reduced-config LM generation (prefill + greedy decode loop) of
+         `--arch` (default gemma3-1b), seeded random weights, on the card
+         or, with `--device cpu`, on the CPU.
 """
 from __future__ import annotations
 
@@ -102,9 +105,36 @@ def serve_sparql(scale: int, n_queries: int, device: str | None = None,
             ranks.close()
 
 
+def serve_lm(arch: str, device: str | None = None) -> None:
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch import resolve_device
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch.train import reduced_lm
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.decode import Generator
+
+    dev = resolve_device(device)
+    cfg = reduced_lm(importlib.import_module(ARCHS[arch]).CONFIG)
+    # drawn on the CPU, so the card and the CPU serve the same weights
+    params = T.init_params(torch.Generator().manual_seed(0), cfg)
+    gen = Generator(cfg, params, device=dev, max_len=64)
+    prompts = np.arange(8, dtype=np.int32).reshape(2, 4) % cfg.vocab
+    out = gen.generate(prompts, n_new=16)
+    print("generated:", out.shape)
+    print(out)
+
+
 def main() -> None:
+    from repro_torch.configs.registry import ARCHS
+
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["sparql"], default="sparql")
+    ap.add_argument("--mode", choices=["sparql", "lm"], default="sparql")
+    ap.add_argument("--arch", choices=sorted(ARCHS), default="gemma3-1b",
+                    help="--mode lm: the LM arch (its reduced config)")
     ap.add_argument("--scale", type=int, default=2)
     ap.add_argument("--n-queries", type=int, default=4)
     ap.add_argument("--device", default=None,
@@ -118,8 +148,11 @@ def main() -> None:
                     help="under a launcher: the ranks' backend (default: "
                          "NCCL on cards, gloo on the CPU)")
     args = ap.parse_args()
-    serve_sparql(args.scale, args.n_queries, args.device, args.shards,
-                 args.backend)
+    if args.mode == "lm":
+        serve_lm(args.arch, args.device)
+    else:
+        serve_sparql(args.scale, args.n_queries, args.device, args.shards,
+                     args.backend)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,418 @@
+"""LM transformer family, serving half: one config covers the five LM archs
+(olmoe-1b-7b, granite-moe-3b-a800m, qwen2.5-32b, gemma3-1b, deepseek-67b).
+
+Structure, as in `repro.models.transformer`: weights are stacked per layer
+(a leading layer axis on every block leaf) and the layer stack is a loop
+over layer index into them; attention is chunked online-softmax (never
+materializes S×S); MoE layers use the MapSQ sort-based dispatch
+(models/moe.py) at prefill and the one-hot einsum at decode.
+
+Serving: `make_prefill_step` runs the prompt once and exports the post-RoPE
+K/V of every layer; `make_serve_step` decodes one token per sequence
+against a static (L, B, S_max, K, Dh) cache, written in place. Positions
+are host ints, so a decode loop makes no host sync.
+
+`params_from_numpy` carries the reference's params (as numpy arrays)
+across, leaf by leaf, bit for bit.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    # MoE (n_experts == 0 -> dense)
+    n_experts: int = 0
+    top_k: int = 0
+    d_expert_ff: int = 0
+    capacity_factor: float = 2.0
+    # attention pattern
+    sliding_window: int = 0  # 0 -> full attention in every layer
+    global_every: int = 0  # gemma3: every Nth layer global (5:1 -> 6)
+    qkv_bias: bool = False  # qwen
+    qk_norm: bool = False  # gemma3
+    rope_theta: float = 1e4
+    rope_theta_local: float = 0.0  # gemma3 local layers (0 -> same)
+    embed_scale: bool = False  # gemma: x *= sqrt(d_model)
+    tied_embeddings: bool = False
+    # distribution and training: kept so the arch configs copy over
+    # unchanged; serving reads none of them (no mesh, no rematerialization,
+    # and the layer loop is plain Python, so there is no scan to unroll)
+    fsdp: bool = False
+    seq_shard: bool = True
+    remat: bool = True
+    dtype: Any = torch.bfloat16
+    kv_chunk: int = 1024
+    scan_unroll: bool = False
+    ce_chunk: int = 0
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def padded_vocab(self) -> int:
+        """Physical vocab rows: padded to 256 (padding logits are masked
+        out)."""
+        return ((self.vocab + 255) // 256) * 256
+
+    def moe_settings(self) -> M.MoESettings:
+        return M.MoESettings(
+            self.n_experts, self.top_k, self.d_expert_ff, self.capacity_factor
+        )
+
+    def is_global_layers(self) -> list[bool]:
+        if self.global_every <= 0:
+            return [True] * self.n_layers
+        return [(i + 1) % self.global_every == 0 for i in range(self.n_layers)]
+
+    def rope_thetas(self) -> list[float]:
+        if self.rope_theta_local <= 0 or self.global_every <= 0:
+            return [float(self.rope_theta)] * self.n_layers
+        return [float(self.rope_theta) if g else float(self.rope_theta_local)
+                for g in self.is_global_layers()]
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init_params(gen: torch.Generator | None, cfg: TransformerConfig,
+                ep: int = 1, *, device=None) -> dict:
+    """Seeded random weights: `dense_init`'s scaled normal drawn from `gen`,
+    on its device. `gen=None` draws on `device` from torch's default
+    generator (`device="meta"`: the shapes alone). `ep` = size of the
+    expert axis (for expert padding). One layer's experts are drawn and
+    copied to every layer, as in the reference."""
+    device = gen.device if gen is not None else torch.device(device)
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    lyr = cfg.n_layers
+    dt = cfg.dtype
+
+    def w(shape, fan_in):
+        return L.dense_init(gen, shape, fan_in, dt, device)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    attn = {
+        "wq": w((lyr, d, h * dh), d),
+        "wk": w((lyr, d, kv * dh), d),
+        "wv": w((lyr, d, kv * dh), d),
+        "wo": w((lyr, h * dh, d), h * dh),
+    }
+    if cfg.qkv_bias:
+        attn["bq"] = zeros((lyr, h * dh))
+        attn["bk"] = zeros((lyr, kv * dh))
+        attn["bv"] = zeros((lyr, kv * dh))
+    if cfg.qk_norm:
+        attn["qnorm"] = zeros((lyr, dh))
+        attn["knorm"] = zeros((lyr, dh))
+    blocks: dict[str, Any] = {
+        "ln1": zeros((lyr, d)),
+        "ln2": zeros((lyr, d)),
+        "attn": attn,
+    }
+    if cfg.is_moe:
+        moe0 = M.init_moe_params(gen, d, cfg.moe_settings(), ep, dt, device)
+        blocks["moe"] = {
+            k: a.unsqueeze(0).expand((lyr,) + a.shape).clone()
+            for k, a in moe0._asdict().items()
+        }
+    else:
+        blocks["ffn"] = {
+            "w_gate": w((lyr, d, cfg.d_ff), d),
+            "w_up": w((lyr, d, cfg.d_ff), d),
+            "w_down": w((lyr, cfg.d_ff, d), cfg.d_ff),
+        }
+    params = {
+        "embed": w((cfg.padded_vocab, d), d),
+        "blocks": blocks,
+        "ln_f": zeros((d,)),
+    }
+    if not cfg.tied_embeddings:
+        params["head"] = w((d, cfg.padded_vocab), d)
+    return params
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def count_params(cfg: TransformerConfig, ep: int = 1) -> tuple[int, int]:
+    """(total, active) parameter counts — active discounts unused experts."""
+    shapes = init_params(None, cfg, ep, device="meta")
+    total = sum(a.numel() for _, a in _leaves(shapes))
+    # discount dead vocab-padding rows from the 'useful param' count
+    pad_rows = cfg.padded_vocab - cfg.vocab
+    total -= pad_rows * cfg.d_model * (1 if cfg.tied_embeddings else 2)
+    active = total
+    if cfg.is_moe:
+        st = cfg.moe_settings()
+        per_expert = 3 * cfg.d_model * cfg.d_expert_ff
+        expert_total = cfg.n_layers * st.e_pad(ep) * per_expert
+        expert_active = cfg.n_layers * cfg.top_k * per_expert
+        active = total - expert_total + expert_active
+    return total, active
+
+
+def params_from_numpy(tree: dict, cfg: TransformerConfig, device) -> dict:
+    """The reference's param pytree, as numpy arrays
+    (`jax.tree.map(np.asarray, params)`), as this port's params dict on
+    `device`: the same keys and shapes, every leaf bit for bit. bfloat16
+    leaves (numpy arrays of the `bfloat16` extension dtype, which
+    `torch.from_numpy` refuses) cross as their uint16 bit patterns."""
+    want = dict(_leaves(init_params(None, cfg, device="meta")))
+    got = dict(_leaves(tree))
+    if set(got) != set(want):
+        raise ValueError(f"param keys differ: {sorted(set(got) ^ set(want))}")
+
+    def leaf(name: str, arr) -> torch.Tensor:
+        arr = np.array(arr, copy=True, order="C")  # writable, owned by torch
+        if tuple(arr.shape) != tuple(want[name].shape):
+            raise ValueError(f"{name}: shape {arr.shape}, expected "
+                             f"{tuple(want[name].shape)}")
+        if arr.dtype.name == "bfloat16":
+            t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
+        return t.to(device)
+
+    def walk(node: dict, prefix: str) -> dict:
+        return {k: walk(v, f"{prefix}{k}/") if isinstance(v, dict)
+                else leaf(f"{prefix}{k}", v) for k, v in node.items()}
+
+    return walk(tree, "")
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _layer(tree: dict, i: int) -> dict:
+    """Layer i's weights out of the stacked block weights (views)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _attn_params(p: dict) -> L.AttnParams:
+    a = p["attn"]
+    return L.AttnParams(wq=a["wq"], wk=a["wk"], wv=a["wv"], wo=a["wo"],
+                        bq=a.get("bq"), bk=a.get("bk"), bv=a.get("bv"))
+
+
+def _embed(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
+    """Token embeddings, scaled by sqrt(d_model) ROUNDED TO THE CONFIG'S
+    DTYPE as the reference does (34.0 for gemma3-1b in bf16)."""
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    if cfg.embed_scale:
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype))
+    return x
+
+
+def _ffn(p: dict, h: torch.Tensor, cfg: TransformerConfig, *,
+         decode: bool) -> torch.Tensor:
+    """The block's FFN: SwiGLU, or MoE at one expert shard (the sort-based
+    dispatch at prefill, the one-hot einsum at decode)."""
+    if not cfg.is_moe:
+        return L.swiglu_ffn(L.FFNParams(**p["ffn"]), h)
+    st = cfg.moe_settings()
+    mp = M.MoEParams(**{k: p["moe"][k] for k in M.MoEParams._fields})
+    if decode:
+        return M.moe_ffn_onehot(mp, h, st, st.e_pad(1))
+    return M.moe_ffn_ep_local(mp, h, st, ep=1)
+
+
+def _head(params: dict, x: torch.Tensor, cfg: TransformerConfig):
+    """Logits over the padded vocab; padding columns at NEG_INF."""
+    head = params["embed"].T if cfg.tied_embeddings else params["head"]
+    logits = x @ head.to(cfg.dtype)
+    if cfg.padded_vocab != cfg.vocab:  # mask dead padding columns
+        dead = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
+        logits = logits.masked_fill(dead, L.NEG_INF)
+    return logits
+
+
+def _forward_trunk(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+                   *, collect_cache: bool = False):
+    """Embed + layer stack + final norm. Returns (x, aux, caches|None);
+    caches are the stacked post-RoPE (K, V), each (L, B, S, K, Dh)."""
+    b, s = tokens.shape
+    x = _embed(params, tokens, cfg)
+    window = cfg.sliding_window if cfg.sliding_window > 0 else s + 1
+    ks, vs = [], []
+    for i, (is_global, theta) in enumerate(
+            zip(cfg.is_global_layers(), cfg.rope_thetas())):
+        p = _layer(params["blocks"], i)
+        h = L.rms_norm(x, p["ln1"])
+        attn_out, kc, vc = _attention_prefill_cached(
+            _attn_params(p), h, cfg, is_global=is_global, window=window,
+            theta=theta, qk=(p["attn"].get("qnorm"), p["attn"].get("knorm")),
+        )
+        x = x + attn_out
+        h2 = L.rms_norm(x, p["ln2"])
+        x = x + _ffn(p, h2, cfg, decode=False)
+        if collect_cache:
+            ks.append(kc)
+            vs.append(vc)
+    x = L.rms_norm(x, params["ln_f"])
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.is_moe:
+        # Load-balance loss from the last layer's router on the final
+        # hidden state (the reference's cheap proxy).
+        st = cfg.moe_settings()
+        last = {k: v[-1] for k, v in params["blocks"]["moe"].items()}
+        aux = M.moe_aux_loss(M.MoEParams(**last), x, st, st.e_pad(1))
+    caches = (torch.stack(ks), torch.stack(vs)) if collect_cache else None
+    return x, aux, caches
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
+            collect_cache: bool = False):
+    """Full-sequence forward. Returns (logits, aux_loss, caches|None)."""
+    x, aux, caches = _forward_trunk(params, tokens, cfg,
+                                    collect_cache=collect_cache)
+    return _head(params, x, cfg), aux, caches
+
+
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
+    """forward() up to the final RMSNorm — no head projection. Returns
+    (x, aux_loss)."""
+    x, aux, _ = _forward_trunk(params, tokens, cfg)
+    return x, aux
+
+
+def _attention_prefill_cached(ap, h, cfg, *, is_global, window, theta, qk):
+    """attention_prefill + expose post-RoPE K/V for prefill cache export."""
+    b, s, _ = h.shape
+    positions = torch.arange(s, dtype=torch.int32, device=h.device)[None, :]
+    q, k, v = L._project_qkv(ap, h, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+    if qk[0] is not None:
+        q = L.rms_norm(q, qk[0])
+        k = L.rms_norm(k, qk[1])
+    q = L.rope(q, positions, theta)
+    k = L.rope(k, positions, theta)
+    out = _flash_core(q, k, v, cfg, is_global=is_global, window=window)
+    return out.to(h.dtype) @ ap.wo, k, v
+
+
+def _flash_core(q, k, v, cfg, *, is_global, window):
+    """Online-softmax over KV chunks (shared by prefill paths). The chunk
+    is min(kv_chunk, S); a longer prompt must be a whole number of them."""
+    s, dh = q.shape[1], q.shape[-1]
+    kv_chunk = L.kv_chunk_len(s, cfg.kv_chunk)
+    return L.online_softmax(q * (dh**-0.5), k, v, kv_chunk=kv_chunk,
+                            is_global=is_global, window=window)
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(cfg: TransformerConfig):
+    """prefill: (params, tokens (B, S)) -> (next (B,) int32, kc, vc);
+    kc/vc: (L, B, S, K, Dh) in the config's dtype."""
+    def prefill_step(params, tokens):
+        logits, _, (kc, vc) = forward(params, tokens, cfg, collect_cache=True)
+        next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        return next_tok, kc.to(cfg.dtype), vc.to(cfg.dtype)
+
+    return prefill_step
+
+
+def decode_logits(params: dict, kc: torch.Tensor, vc: torch.Tensor, pos: int,
+                  tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """One decode step's logits (B, V_pad) for `tokens` (B,) at position
+    `pos` (a host int, the current cache length); writes the new K/V into
+    kc/vc (L, B, S_max, K, Dh) in place."""
+    x = _embed(params, tokens, cfg)[:, None, :]  # (B, 1, D)
+    window = cfg.sliding_window if cfg.sliding_window > 0 else kc.shape[2] + 1
+    for i, (is_global, theta) in enumerate(
+            zip(cfg.is_global_layers(), cfg.rope_thetas())):
+        p = _layer(params["blocks"], i)
+        h = L.rms_norm(x, p["ln1"])
+        attn_out = _decode_attn(
+            _attn_params(p), h, kc[i], vc[i], pos, cfg, is_global, window,
+            theta, qk=(p["attn"].get("qnorm"), p["attn"].get("knorm")),
+        )
+        x = x + attn_out
+        h2 = L.rms_norm(x, p["ln2"])
+        x = x + _ffn(p, h2, cfg, decode=True)
+    x = L.rms_norm(x, params["ln_f"])
+    return _head(params, x, cfg)[:, 0, :]
+
+
+def make_serve_step(cfg: TransformerConfig):
+    """decode: (params, kc, vc, pos, tokens (B,)) -> (next (B,), kc, vc).
+    kc/vc: (L, B, S_max, K, Dh), updated in place and returned; pos: host
+    int, the current cache length."""
+    def serve_step(params, kc, vc, pos, tokens):
+        logits = decode_logits(params, kc, vc, pos, tokens, cfg)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        return nxt, kc, vc
+
+    return serve_step
+
+
+def _decode_attn(ap, x, kc, vc, pos, cfg, is_global, window, theta, qk):
+    """One layer's decode attention; kc/vc: (B, S_max, K, Dh) views into
+    the stacked cache, written in place at `pos`."""
+    q, k_new, v_new = L._project_qkv(ap, x, cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.d_head)
+    if qk[0] is not None:
+        q = L.rms_norm(q, qk[0])
+        k_new = L.rms_norm(k_new, qk[1])
+    posb = torch.arange(pos, pos + 1, dtype=torch.int32,
+                        device=x.device).expand(x.shape[0], 1)
+    q = L.rope(q, posb, theta)
+    k_new = L.rope(k_new, posb, theta)
+    o = L.decode_core(q, k_new, v_new, kc, vc, pos, scale=cfg.d_head**-0.5,
+                      is_global=is_global, window=window)
+    return o.to(x.dtype) @ ap.wo
+
+
+def init_decode_cache(cfg: TransformerConfig, batch: int, s_max: int,
+                      device=None):
+    shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.d_head)
+    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
+            torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Roofline bookkeeping
+# ---------------------------------------------------------------------------
+
+def model_flops(cfg: TransformerConfig, kind: str, batch: int, seq: int,
+                ep: int = 1) -> float:
+    """MODEL_FLOPS = 6·N·D (train) / 2·N·D (+attention) for inference."""
+    total, active = count_params(cfg, ep)
+    n_tok = batch * seq
+    attn = 4.0 * n_tok * seq * cfg.n_heads * cfg.d_head  # QK^T + PV (causal/2 applied below)
+    if kind == "train":
+        return 6.0 * active * n_tok + 3.0 * attn / 2
+    if kind == "prefill":
+        return 2.0 * active * n_tok + attn / 2
+    # decode: one token per sequence over a seq-long cache
+    return 2.0 * active * batch + 4.0 * batch * seq * cfg.n_heads * cfg.d_head

@@ -1,15 +1,29 @@
-"""Serving-side decode stage: `DecodePool`, the host half of the SPARQL
-serving pipeline. The MicroBatcher thread dispatches device work and hands
-each request's finalisation (device→host transfer + row materialisation)
-to this bounded worker pool, so dispatch of batch k+1 overlaps decode of
-batch k (MapSQ's CPU/GPU split applied to the serving tier).
+"""Serving-side decode stage.
+
+Two residents:
+
+- `DecodePool` — the host half of the SPARQL serving pipeline. The
+  MicroBatcher thread dispatches device work and hands each request's
+  finalisation (device→host transfer + row materialisation) to this
+  bounded worker pool, so dispatch of batch k+1 overlaps decode of batch
+  k (MapSQ's CPU/GPU split applied to the serving tier).
+- `Generator` — autoregressive LM generation: prefill once, then greedy
+  decode with a static-capacity KV cache (prefill_step / serve_step from
+  models/transformer).
 """
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 import time
 from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import transformer as T
 
 
 class DecodePool:
@@ -114,3 +128,59 @@ class DecodePool:
             self.q.put(None)
         for t in self._threads:
             t.join(timeout=2)
+
+
+@dataclasses.dataclass
+class Generator:
+    """Greedy generation on one device. `params` (the port's params dict)
+    are moved to the device once. The cache is static, (L, B, max_len, K,
+    Dh), and updated in place; every step's token stays on the device
+    until the end, so the decode loop makes no host sync."""
+    cfg: T.TransformerConfig
+    params: dict
+    device: Any = None
+    max_len: int = 256
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.params = _to_device(self.params, self.device)
+        self._prefill = T.make_prefill_step(self.cfg)
+        self._step = T.make_serve_step(self.cfg)
+
+    def start(self, tokens: torch.Tensor):
+        """Prefill `tokens` (B, S0) on the device into a fresh max_len
+        cache. Returns (first new token (B,), kc, vc)."""
+        b, s0 = tokens.shape
+        kc, vc = T.init_decode_cache(self.cfg, b, self.max_len, self.device)
+        nxt, kc_p, vc_p = self._prefill(self.params, tokens)
+        kc[:, :, :s0] = kc_p
+        vc[:, :, :s0] = vc_p
+        return nxt, kc, vc
+
+    def generate_on_device(self, tokens: torch.Tensor, n_new: int) -> torch.Tensor:
+        """tokens: (B, S0) int on the device. Returns (B, n_new) greedy
+        tokens on the device."""
+        b, s0 = tokens.shape
+        if s0 + n_new > self.max_len:
+            raise ValueError(f"{s0} prompt + {n_new} new tokens exceed "
+                             f"max_len {self.max_len}")
+        with torch.inference_mode():
+            out = torch.empty((b, n_new), dtype=torch.int32, device=self.device)
+            nxt, kc, vc = self.start(tokens)
+            out[:, 0] = nxt
+            for i in range(1, n_new):
+                nxt, kc, vc = self._step(self.params, kc, vc, s0 + i - 1, nxt)
+                out[:, i] = nxt
+        return out
+
+    def generate(self, prompts: np.ndarray, n_new: int) -> np.ndarray:
+        """prompts: (B, S0) int32. Returns (B, n_new) greedy tokens, copied
+        to the host once at the end."""
+        tokens = torch.from_numpy(np.asarray(prompts, dtype=np.int32))
+        out = self.generate_on_device(tokens.to(self.device), n_new)
+        return out.cpu().numpy()
+
+
+def _to_device(tree: dict, device: torch.device) -> dict:
+    return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}

@@ -837,3 +837,52 @@ def test_ranks_on_the_card_equal_the_cpu(cuda, tmp_path, world, backend):
         assert rec["engines"] == one["engines"]
     assert ranks[0]["batches"] == one["batches"]
     assert ranks[0]["after_update"] == one["after_update"]
+
+
+LM_ARCHS = ["deepseek-67b", "gemma3-1b", "granite-moe-3b-a800m", "olmoe-1b-7b",
+            "qwen2.5-32b"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_on_the_card_equals_the_cpu(cuda, arch, dtype):
+    """The reduced config of each LM arch, the same seeded weights on the
+    card and on the CPU: float32 logits within rtol/atol 1e-4 and greedy
+    tokens equal (decoded with sync debugging at "error"); bf16 logits
+    within 5e-2. TF32 stays off, or the float32 comparison means nothing."""
+    import dataclasses
+    import importlib
+
+    import numpy as np
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch.train import reduced_lm
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.decode import Generator
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    dt = getattr(torch, dtype)
+    cfg = dataclasses.replace(
+        reduced_lm(importlib.import_module(ARCHS[arch]).CONFIG), dtype=dt)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (2, 32)).astype(
+        np.int32)
+    tokens = torch.from_numpy(prompts)
+    card = Generator(cfg, params, device=cuda, max_len=40)
+    with torch.inference_mode():
+        want = T.forward(params, tokens, cfg)[0].float()
+        got = T.forward(card.params, tokens.to(cuda), cfg)[0].float().cpu()
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        on_card = tokens.to(cuda)  # a host-to-card copy syncs: not inside
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = card.generate_on_device(on_card, 8)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        cpu = Generator(cfg, params, device="cpu", max_len=40)
+        np.testing.assert_array_equal(out.cpu().numpy(),
+                                      cpu.generate(prompts, 8))
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=5e-2)

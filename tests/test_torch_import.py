@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: importing every module of `repro_torch`
-loads neither JAX nor any module of the JAX package."""
+loads neither JAX, nor `ml_dtypes`, nor any module of the JAX package."""
 import os
 import pathlib
 import subprocess
@@ -39,6 +39,16 @@ def test_port_imports_without_jax_or_reference():
         "repro_torch.core.dist_executor",
         "repro_torch.sparql.sharded_store",
         "repro_torch.core.ranks",
+        "repro_torch.configs.registry",
+        "repro_torch.configs.gemma3_1b",
+        "repro_torch.configs.qwen2_5_32b",
+        "repro_torch.configs.deepseek_67b",
+        "repro_torch.configs.olmoe_1b_7b",
+        "repro_torch.configs.granite_moe_3b_a800m",
+        "repro_torch.models.layers",
+        "repro_torch.models.moe",
+        "repro_torch.models.transformer",
+        "repro_torch.launch.train",
     ):
         assert m in mods, m
     code = (
@@ -46,7 +56,7 @@ def test_port_imports_without_jax_or_reference():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.'))\n"
+        " or m == 'repro' or m.startswith('repro.') or m == 'ml_dtypes')\n"
         "print(bad)\n"
         "assert not bad, bad\n"
     )
