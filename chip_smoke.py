@@ -12,7 +12,9 @@ Phases (any failure ends the run with a non-zero exit and no "ok" line):
      pair sort on its keys and its (key, payload) multiset and, above one
      tile, on its payloads too; the segment sum within the reference
      test's tolerances of the exact sum, also with one segment holding
-     half the rows, and two calls bit-equal; each launcher call's device
+     half the rows and at phase 11's shapes (GraphCast's aggregations at
+     minibatch_lg, DeepFM's one-row bags at serve_bulk), two calls
+     bit-equal; each launcher call's device
      launches logged for those two and for sort_ranks, with a profiler
      breakdown by kernel; pair_expand also at the merge path's edges and
      at every (n_left, capacity) of the full-scale phase, single and
@@ -115,12 +117,34 @@ Phases (any failure ends the run with a non-zero exit and no "ok" line):
      0.25 of a cacheless forward over the grown sequence; (c) gemma3-1b at full width with 2 layers in float32, 2 x
      64 prompts and 8 new tokens, card against the CPU port (tokens equal,
      or a flip only at a top-two gap within the tolerance), TF32 off.
- 11. summary — the stacked-forms line, the kernels line, the card line,
+ 11. GNN and recsys forward — the port's GNN family (`mod.apply`) and
+     DeepFM (`sigmoid(forward)`, `retrieval_scores`), every sorted
+     aggregation and embedding bag through segment_reduce: (a) the four
+     GNN archs at the CPU tests' reduced configs (GraphCast also streamed
+     in chunks, SchNet also on a molecule batch) and DeepFM's small
+     config, card against the CPU port with the same seeded weights
+     (outputs and losses within rtol/atol 1e-4); (b) gat-cora on
+     full_graph_sm, schnet on molecule, GraphCast at its published width
+     and depth on full_graph_sm's graph, card against the CPU port within
+     1e-3, and DeepFM at its published config (33,540,000 rows) at
+     serve_p99 and retrieval_cand against the CPU port within 1e-4; (c)
+     at minibatch_lg's device dims, GraphCast in float32 and with a bf16
+     compute_dtype (finite, bf16 within a stated bound of float32) and
+     MeshGraphNet (against the CPU port), then DeepFM at serve_bulk held
+     to the CPU port on its first 4,096 rows. Every forward's first call
+     runs with sync debugging at "error" and launches segment_reduce
+     exactly once per aggregation (one forward's count, read just after
+     it); then forward ms (p50, CUDA events) beside its bound (model
+     FLOPs over the float32 rate, TF32 off, or bytes over HBM), peak
+     memory, device launches, card busy time and segment_reduce's card
+     time (profiler). TF32 is off throughout.
+ 12. summary — the stacked-forms line, the kernels line, the card line,
      then the result line.
 
-Each of the paths of phases 3, 5, 6, 7, 8 and 9 runs with the launch counts set
-to 0 just before it and read just after (in phase 9 on each rank); the
-kernels line reports each kernel's launches from the path that runs it.
+Each of the paths of phases 3, 5, 6, 7, 8, 9 and 11 runs with the launch counts
+set to 0 just before it and read just after (in phase 9 on each rank); the
+kernels line reports each kernel's launches from the path that runs it
+(segment_reduce's: the kernel API's and phase 11's, also apart).
 
 Needs the repository's src/ beside it and one CUDA card; exits non-zero
 without them.
@@ -128,6 +152,10 @@ without them.
     python3 chip_smoke.py --lm-only
 
 runs phase 10 alone (no kernel build, no result line).
+
+    python3 chip_smoke.py --gnn-only
+
+runs the build and phase 11 alone (no result line).
 
     python3 chip_smoke.py --kernels-only [--src OTHER/src]
 
@@ -140,6 +168,7 @@ launch counts) is not made.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import re
@@ -642,22 +671,18 @@ def kernel_phase(dev) -> dict[str, dict]:
     # segment_reduce: the reference benchmark's shape, the reference
     # kernel's largest segment count in float32 and bfloat16, the same
     # with segment 7 holding half the rows (power-law segment sizes, as
-    # GNN message passing and EmbeddingBag see), and 16x the segments.
-    # float32 is held to the plain version's sum in float64 (the exact
-    # sum: at the skewed shape the float32 plain version's own rounding
-    # exceeds the tolerance) and, at uniform shapes, to the float32 plain
-    # version; bfloat16 to the float32 result. Two calls give equal bits.
-    skew = 1 << 19
-    for n, d, segs, dtype, hot in ((2048, 64, 128, torch.float32, 0),
-                                   (1 << 20, 128, 4096, torch.float32, 0),
-                                   (1 << 20, 128, 4096, torch.bfloat16, 0),
-                                   (1 << 20, 128, 4096, torch.float32, skew),
-                                   (1 << 20, 128, 4096, torch.bfloat16, skew),
-                                   (1 << 20, 128, 65536, torch.float32, 0)):
-        ids = torch.randint(0, segs, (n - hot,), generator=gen,
-                            dtype=torch.int32)
-        ids = torch.cat([ids, torch.full((hot,), 7, dtype=torch.int32)])
-        ids = torch.sort(ids).values.to(dev)
+    # GNN message passing and EmbeddingBag see), and 16x the segments;
+    # then the shapes phase 11's models give it: GraphCast's processor
+    # aggregation at minibatch_lg (297,472 edges x 512 into 42,496 mesh
+    # nodes, float32, the kernels line's row, and bfloat16), its m2g
+    # aggregation (168,960 x 512 into 169,984 grid nodes) and DeepFM's
+    # embedding bag at serve_bulk (10,223,616 rows of 10 and of 1, one row
+    # a bag). float32 is held to the plain version's sum in float64 (the
+    # exact sum: at the skewed shape the float32 plain version's own
+    # rounding exceeds the tolerance) and, at uniform shapes, to the
+    # float32 plain version; bfloat16 to the float32 result. Two calls
+    # give equal bits.
+    def seg_case(label, n, d, segs, dtype, ids, primary, hot=0):
         data32 = torch.randn(n, d, generator=gen).to(dev)
         data = data32.to(dtype)
         before = device_launches("segment_reduce")
@@ -666,9 +691,9 @@ def kernel_phase(dev) -> dict[str, dict]:
         again = srk.sorted_segment_sum_cuda(data, ids, segs)
         torch.cuda.synchronize()
         bits = torch.int32 if dtype == torch.float32 else torch.int16
+        shape = f"n={n} d={d} segments={segs} {dtype} {label}"
         check(torch.equal(got.view(bits), again.view(bits)),
-              f"segment_reduce n={n} segments={segs} {dtype} hot={hot}: "
-              "two calls differ in their bits")
+              f"segment_reduce {shape}: two calls differ in their bits")
         if dtype == torch.float32:
             exact = srr.sorted_segment_sum(data.double(), ids, segs)
             err = float_err(got, exact, 1e-5, 1e-4)
@@ -676,6 +701,7 @@ def kernel_phase(dev) -> dict[str, dict]:
             plain_err = float((plain.double() - exact).abs().max())
             if not hot:  # the float32 plain version within the tolerance
                 float_err(got, plain, 1e-5, 1e-4)
+            del exact, plain
         else:  # bf16 against the float32 result, the reference's bounds:
             # of the same bf16 inputs, and at uniform shapes (as before)
             # of the float32 data they were rounded from (over 2^19 rows
@@ -687,18 +713,17 @@ def kernel_phase(dev) -> dict[str, dict]:
             if not hot:
                 float_err(got, srr.sorted_segment_sum(data32, ids, segs),
                           5e-2, 0.3)
-        log(f"kernel segment_reduce n={n} d={d} segments={segs} {dtype} "
-            f"hot_segment_rows={hot}: device launches per call {per_call}; "
-            f"two calls bit-equal; max abs error of the float32 plain "
-            f"version from the float64 sum (float32), of the kernel from "
-            f"the float32 data's sum (bfloat16): {plain_err}; "
-            "device ms, launches per call by kernel "
+        del got, again, data32
+        log(f"kernel segment_reduce {shape} hot_segment_rows={hot}: device "
+            f"launches per call {per_call}; two calls bit-equal; max abs "
+            f"error of the float32 plain version from the float64 sum "
+            f"(float32), of the kernel from the float32 data's sum "
+            f"(bfloat16): {plain_err}; device ms, launches per call by "
+            f"kernel "
             f"{device_breakdown(lambda: srk.sorted_segment_sum_cuda(data, ids, segs))}")
         size = data.element_size()
         record(
-            "segment_reduce",
-            f"n={n} d={d} segments={segs} {dtype} hot_segment_rows={hot}",
-            err,
+            "segment_reduce", f"{shape} hot_segment_rows={hot}", err,
             lambda: srk.sorted_segment_sum_cuda(data, ids, segs),
             lambda: srr.sorted_segment_sum(data, ids, segs),
             # data and ids read once, out written once; n*d adds
@@ -708,8 +733,34 @@ def kernel_phase(dev) -> dict[str, dict]:
             .index_add_(0, ids, data),
             "src/repro_torch/kernels/segment_reduce/csrc/segment_sum.cu",
             "src/repro/kernels/segment_reduce/kernel.py:25",
-            exact=False,
+            exact=False, primary=primary,
         )
+
+    def random_ids(n, segs, hot=0):
+        ids = torch.randint(0, segs, (n - hot,), generator=gen,
+                            dtype=torch.int32)
+        ids = torch.cat([ids, torch.full((hot,), 7, dtype=torch.int32)])
+        return torch.sort(ids).values.to(dev)
+
+    skew = 1 << 19
+    for n, d, segs, dtype, hot in ((2048, 64, 128, torch.float32, 0),
+                                   (1 << 20, 128, 4096, torch.float32, 0),
+                                   (1 << 20, 128, 4096, torch.bfloat16, 0),
+                                   (1 << 20, 128, 4096, torch.float32, skew),
+                                   (1 << 20, 128, 4096, torch.bfloat16, skew),
+                                   (1 << 20, 128, 65536, torch.float32, 0)):
+        seg_case("skew" if hot else "uniform", n, d, segs, dtype,
+                 random_ids(n, segs, hot), primary=False, hot=hot)
+    mesh_ids = random_ids(297_472, 42_496)
+    for dtype in (torch.bfloat16, torch.float32):  # float32: the kernels line
+        seg_case("graphcast processor", 297_472, 512, 42_496, dtype,
+                 mesh_ids, primary=dtype == torch.float32)
+    seg_case("graphcast m2g", 168_960, 512, 169_984, torch.float32,
+             random_ids(168_960, 169_984), primary=False)
+    bags = torch.arange(10_223_616, dtype=torch.int32, device=dev)
+    for d in (10, 1):
+        seg_case("deepfm bag serve_bulk", 10_223_616, d, 10_223_616,
+                 torch.float32, bags, primary=False)
     clear_launches(kernels)  # comparison launches do not count
     return out
 
@@ -2174,7 +2225,7 @@ LM_PROMPT, LM_NEW, LM_MAX_LEN = 1024, 64, 1088
 LM_CHECK_STEPS = (1, 16, 64)
 
 
-def lm_config(arch: str, **changes):
+def arch_config(arch: str, **changes):
     import dataclasses
     import importlib
 
@@ -2209,15 +2260,15 @@ def lm_reduced(dev) -> dict:
 
     import numpy as np
 
-    from repro_torch.configs.registry import ARCHS
+    from repro_torch.configs.registry import archs_of
     from repro_torch.launch.train import reduced_lm
     from repro_torch.models import transformer as T
     from repro_torch.serve.decode import Generator
 
     out = {}
-    for arch in sorted(ARCHS):
+    for arch in archs_of("lm"):
         vocab = 500 if arch == "granite-moe-3b-a800m" else 512
-        base = reduced_lm(lm_config(arch), vocab=vocab)
+        base = reduced_lm(arch_config(arch), vocab=vocab)
         prompts = np.random.default_rng(len(arch)).integers(
             0, vocab, (2, 32)).astype(np.int32)
         tokens = torch.from_numpy(prompts)
@@ -2266,7 +2317,7 @@ def lm_full_width(dev) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.serve.decode import Generator
 
-    cfg = lm_config("gemma3-1b")
+    cfg = arch_config("gemma3-1b")
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
@@ -2409,7 +2460,7 @@ def lm_cut_depth(dev) -> dict:
 
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmuls are on: a float32 comparison would mean nothing")
-    cfg = lm_config("gemma3-1b", n_layers=2, dtype=torch.float32)
+    cfg = arch_config("gemma3-1b", n_layers=2, dtype=torch.float32)
     params = T.init_params(torch.Generator().manual_seed(2), cfg)
     prompts = np.random.default_rng(3).integers(
         0, cfg.vocab, (2, 64)).astype(np.int32)
@@ -2457,6 +2508,462 @@ def lm_phase(dev) -> dict:
             "seconds": round(secs, 1)}
 
 
+# -- phase 11: GNN and recsys forward -----------------------------------------
+
+# H100 SXM float32 peak outside the tensor cores (NVIDIA data sheet), at
+# 700 W. Every matmul of these models runs in float32 with TF32 off; with
+# a bfloat16 compute_dtype too, since the weights stay float32 and bf16
+# activations against float32 weights compute in float32 (JAX's
+# promotion, which the port keeps), so that bound uses this rate as well
+F32_FLOPS_PER_S = 67e12
+GNN_SMALL_TOL = dict(rtol=1e-4, atol=1e-4)  # the CPU tests' float32 bound
+# published widths, card vs the CPU port: float32 dot products of up to
+# 2,048 terms summed in another order (cuBLAS against the CPU's BLAS),
+# through up to 18 residual blocks whose layer norms keep values O(1):
+# ~1e-6 a block, a few 1e-5 at the output; a wrong edge, mask or weight
+# moves outputs by O(0.1) or more
+GNN_FULL_TOL = dict(rtol=1e-3, atol=1e-3)
+# GraphCast's bf16 compute_dtype against float32 at minibatch_lg: node and
+# edge activations rounded to bf16 (eps 2^-8) at each of 18 blocks; on the
+# CPU port at 2,708-8,000 grid nodes the gap was 0.0036-0.0038 of the
+# outputs' L2 norm and at most 0.027 (outputs' RMS 1.0, max 4.5)
+GRAPHCAST_BF16_REL_L2 = 0.02
+GRAPHCAST_BF16_ATOL = 0.1
+GNN_REPEATS = 5
+SEGMENT_KERNELS = ("chunk_sum_kernel", "finish_kernel")  # segment_sum.cu
+
+
+def tree_to(tree, dev):
+    """A nested dict / list of tensors, copied to `dev`."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def run_without_sync(fn):
+    """One forward with sync debugging at "error": any host sync inside
+    raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out
+
+
+def segment_launches_per_forward(arch: str, cfg, g) -> int:
+    """The sorted segment sums one forward makes: one per aggregation, and
+    SchNet's per-graph readout."""
+    from repro_torch.models.gnn.graphcast import _pick_chunks
+
+    if arch == "gat-cora":
+        return cfg.n_layers
+    if arch == "schnet":
+        return cfg.n_interactions + 1
+    if arch == "meshgraphnet":
+        return cfg.n_layers
+    if not cfg.edge_stream_chunks:  # g2m, the processor, m2g
+        return cfg.n_layers + 2
+    return cfg.n_layers + sum(  # g2m and m2g, one per chunk
+        _pick_chunks(e, cfg.edge_stream_chunks)
+        for e in (g.n_edges, g.extras["m2g_src"].shape[0]))
+
+
+def gnn_dims_of(g, cfg) -> dict:
+    """_gnn_model_flops' dims from the batch itself (this run's sizes)."""
+    dims = {"n": g.n_nodes, "e": g.n_edges}
+    if "mesh_src" in g.extras:
+        dims.update(n_mesh=g.extras["mesh_feat_init"].shape[0],
+                    e_mesh=g.extras["mesh_src"].shape[0])
+    return dims
+
+
+class ModelPath:
+    """Phase 11's runs of the main path: each counted for segment_reduce
+    launches (set to 0 just before one forward with sync debugging at
+    "error", read just after), checked against the launches its
+    aggregations need, then timed and profiled (those calls do not count)."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.launches = 0
+        self.rows = {}
+
+    def first(self, name: str, fn, want_launches: int):
+        clear_launches(self.kernels)
+        out = run_without_sync(fn)
+        got = self.kernels.LAUNCHES["segment_reduce"]
+        clear_launches(self.kernels)
+        check(got == want_launches,
+              f"{name}: segment_reduce launched {got} times, its "
+              f"aggregations need {want_launches}")
+        self.launches += got
+        return out
+
+    def measure(self, name: str, fn, flops: float, n_bytes: int,
+                launches: int, repeats: int = GNN_REPEATS,
+                profile_calls: int = 3, **extra) -> dict:
+        """Forward ms (CUDA events around each of `repeats` calls, p50)
+        beside its bound, peak memory, and one call's device launches,
+        card busy time and segment_reduce card time (profiler)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ms = []
+        with torch.inference_mode():
+            for _ in range(repeats):
+                ev[0].record()
+                fn()
+                ev[1].record()
+                torch.cuda.synchronize()
+                ms.append(ev[0].elapsed_time(ev[1]))
+        peak = torch.cuda.max_memory_allocated()
+
+        def once():
+            with torch.inference_mode():
+                fn()
+
+        breakdown = device_breakdown(once, calls=profile_calls)
+        clear_launches(self.kernels)
+        n_launch, busy = card_work(breakdown)
+        seg = ([v for k, v in breakdown.items()
+                if k.startswith(SEGMENT_KERNELS)]
+               if isinstance(breakdown, dict) else None)
+        b_ms, b_by = max((flops / F32_FLOPS_PER_S * 1e3, "operations"),
+                         (n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+        p50 = statistics.median(ms)
+        row = {
+            "forward_ms_p50": round(p50, 4), "forward_ms_min": round(min(ms), 4),
+            "forward_ms_max": round(max(ms), 4), "bound_ms": round(b_ms, 4),
+            "bound_by": b_by, "flops": flops, "bytes": n_bytes,
+            "peak_bytes": peak, "resident_bytes": base,
+            "device_launches": n_launch, "busy_ms": busy,
+            "segment_reduce_launches": launches,
+            "segment_reduce_device_launches": (
+                round(sum(n for _, n in seg), 2) if seg is not None
+                else "not measured"),
+            "segment_reduce_ms": (round(sum(t for t, _ in seg), 4)
+                                  if seg is not None else "not measured"),
+            "top_kernels": sorted(breakdown.items(),
+                                  key=lambda kv: -kv[1][0])[:4]
+            if isinstance(breakdown, dict) else breakdown,
+            **extra,
+        }
+        idle = (f"card idle {1 - busy / p50:.2f}" if isinstance(busy, float)
+                else "card idle not measured")
+        log(f"gnn {name}: forward p50 {p50:.4f} ms (min {min(ms):.4f}, max "
+            f"{max(ms):.4f}) against a bound of {b_ms:.4f} ms ({b_by}); peak "
+            f"{peak} bytes ({base} resident); {n_launch} launches, "
+            f"{busy} ms busy ({idle}); segment_reduce {launches} launches, "
+            f"{row['segment_reduce_ms']} ms; {extra}")
+        self.rows[name] = row
+        return row
+
+
+def gnn_small(dev, path: ModelPath) -> dict:
+    """(a) Each GNN arch at its reduced config (GraphCast also streamed in
+    4 chunks, SchNet also on a molecule batch) and DeepFM's small config,
+    float32: the same seeded weights on the card and on the CPU port,
+    outputs and losses within the tests' tolerance, every forward with
+    no host sync."""
+    from repro_torch.configs.registry import _gnn_module, archs_of
+    from repro_torch.data.graphs import (
+        make_full_graph, make_molecule_batch, to_device)
+    from repro_torch.data.recsys import CTRPipeline
+    from repro_torch.launch.train import reduced_gnn
+    from repro_torch.models.recsys import deepfm as D
+
+    def reduced(arch):
+        return reduced_gnn(arch, arch_config(arch))
+
+    d_feat = {"schnet": 1, "graphcast": 6, "gat-cora": 12, "meshgraphnet": 8}
+    cases = [(arch, reduced(arch),
+              make_full_graph(arch, 40, 90, 96, d_feat[arch], 3))
+             for arch in archs_of("gnn")]
+    cases.append(("graphcast", dataclasses.replace(
+        reduced("graphcast"), edge_stream_chunks=4),
+        make_full_graph("graphcast", 300, 2000, 2048, 6, 3, seed=5)))
+    cases.append(("schnet", reduced("schnet"),
+                  make_molecule_batch("schnet", 10, 24, 4, 1)))
+    errs = {}
+    for i, (arch, cfg, g_np) in enumerate(cases):
+        mod = _gnn_module(arch)
+        params = mod.init_params(torch.Generator().manual_seed(i), cfg)
+        g_cpu, g_dev = to_device(g_np, "cpu"), to_device(g_np, dev)
+        p_dev = tree_to(params, dev)
+        name = f"{arch} reduced #{i}"
+        got = path.first(name, lambda: mod.apply(p_dev, g_dev, cfg),
+                         segment_launches_per_forward(arch, cfg, g_dev))
+        loss = run_without_sync(lambda: mod.loss_fn(p_dev, g_dev, cfg))
+        with torch.inference_mode():
+            want = mod.apply(params, g_cpu, cfg)
+            want_loss = mod.loss_fn(params, g_cpu, cfg)
+        errs[name] = max(float_err(got.cpu(), want, **GNN_SMALL_TOL),
+                         float_err(loss.cpu(), want_loss, **GNN_SMALL_TOL))
+    cfg = D.DeepFMConfig(n_sparse=6, embed_dim=4, mlp_dims=(16, 16),
+                         rows_per_field=50)
+    params = D.init_params(torch.Generator().manual_seed(9), cfg)
+    p_dev = tree_to(params, dev)
+    ids = torch.from_numpy(CTRPipeline(6, 50, 32).batch_at(0)["ids"])
+    ids_dev = ids.to(dev)
+    cand = ids[:, :3] % 50
+    cand_dev = cand.to(dev)
+    got = path.first("deepfm reduced forward",
+                     lambda: torch.sigmoid(D.forward(p_dev, ids_dev, cfg)), 2)
+    scores = path.first("deepfm reduced retrieval",
+                        lambda: D.retrieval_scores(p_dev, ids_dev[:1],
+                                                   cand_dev, cfg), 2)
+    with torch.inference_mode():
+        errs["deepfm reduced"] = max(
+            float_err(got.cpu(), torch.sigmoid(D.forward(params, ids, cfg)),
+                      **GNN_SMALL_TOL),
+            float_err(scores.cpu(), D.retrieval_scores(params, ids[:1], cand,
+                                                       cfg), **GNN_SMALL_TOL))
+    log(f"gnn reduced configs, card vs CPU port, max abs err: {errs}")
+    return errs
+
+
+def gnn_published(dev, path: ModelPath) -> dict:
+    """(b) gat-cora on full_graph_sm, schnet on molecule, GraphCast at
+    published width and depth on full_graph_sm's graph: card against the
+    CPU port, float32, TF32 off, the same seeded weights; timed."""
+    from repro_torch.configs.registry import (
+        GNN_SHAPES, _gnn_cfg_for_shape, _gnn_dims, _gnn_model_flops,
+        _gnn_module)
+    from repro_torch.data.graphs import (
+        make_full_graph, make_molecule_batch, to_device)
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: a float32 comparison would mean nothing")
+    sm = GNN_SHAPES["full_graph_sm"]
+    mol = GNN_SHAPES["molecule"]
+    dims = _gnn_dims("gat-cora", sm, 1)
+    runs = [
+        ("gat-cora full_graph_sm", "gat-cora",
+         make_full_graph("gat-cora", sm["n_nodes"], sm["n_edges"], dims["e"],
+                         sm["d_feat"], sm["n_classes"])),
+        ("schnet molecule", "schnet",
+         make_molecule_batch("schnet", mol["n_nodes"], mol["n_edges"],
+                             mol["batch"], mol["n_classes"])),
+        ("graphcast full_graph_sm", "graphcast",
+         make_full_graph("graphcast", sm["n_nodes"], sm["n_edges"],
+                         dims["e"], arch_config("graphcast").n_vars,
+                         sm["n_classes"])),
+    ]
+    out = {}
+    for i, (name, arch, g_np) in enumerate(runs):
+        mod = _gnn_module(arch)
+        cfg = _gnn_cfg_for_shape(arch, arch_config(arch),
+                                 _gnn_dims(arch, mol if arch == "schnet"
+                                           else sm, 1))
+        params = mod.init_params(torch.Generator().manual_seed(10 + i), cfg)
+        g_cpu, g_dev = to_device(g_np, "cpu"), to_device(g_np, dev)
+        p_dev = tree_to(params, dev)
+        fn = lambda: mod.apply(p_dev, g_dev, cfg)  # noqa: E731
+        n_seg = segment_launches_per_forward(arch, cfg, g_dev)
+        got = path.first(name, fn, n_seg)
+        with torch.inference_mode():
+            want = mod.apply(params, g_cpu, cfg)
+        err = float_err(got.cpu(), want, **GNN_FULL_TOL)
+        flops = _gnn_model_flops(arch, cfg, gnn_dims_of(g_np, cfg)) / 3
+        n_bytes = tree_bytes(p_dev) + tree_bytes(list(g_dev[:-1])) \
+            + tree_bytes(g_dev.extras) + tree_bytes(got)
+        out[name] = path.measure(name, fn, flops, n_bytes, n_seg,
+                                 max_abs_err_vs_cpu=err)
+        del params, p_dev, g_dev, g_cpu, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def distinct_row_bytes(flat_ids, width: int) -> int:
+    """The float32 table bytes a lookup must read: each distinct row once."""
+    return int(torch.unique(flat_ids).numel()) * width * 4
+
+
+def deepfm_runs(dev, path: ModelPath) -> dict:
+    """DeepFM at its published config (39 fields of 860,000 rows, embedding
+    10, MLP 400-400-400), the weights drawn once on the CPU from a seed and
+    copied to the card: (b) serve_p99 (sigmoid of forward, batch 512) and
+    retrieval_cand (1,000,448 candidates, 3 item fields), card against
+    the CPU port; (c) serve_bulk (batch 262,144), held to the CPU port on
+    its first rows (a row's output depends only on that row)."""
+    from repro_torch.configs.registry import RECSYS_SHAPES
+    from repro_torch.data.recsys import CTRPipeline
+    from repro_torch.models.recsys import deepfm as D
+
+    cfg = arch_config("deepfm")
+    t = time.perf_counter()
+    params = D.init_params(torch.Generator().manual_seed(20), cfg)
+    p_dev = tree_to(params, dev)
+    torch.cuda.synchronize()
+    log(f"deepfm: {cfg.total_rows} rows, {tree_bytes(params)} bytes of "
+        f"weights drawn on the CPU and copied to the card in "
+        f"{time.perf_counter() - t:.2f} s")
+    mlp_flops = 2 * sum(a * b for a, b in zip(
+        (cfg.n_sparse * cfg.embed_dim,) + cfg.mlp_dims, cfg.mlp_dims + (1,)))
+    fm_flops = 4 * cfg.n_sparse * cfg.embed_dim
+    out = {}
+    for shape, prefix in (("serve_p99", None), ("serve_bulk", 4096)):
+        b = RECSYS_SHAPES[shape]["batch"]
+        ids = torch.from_numpy(
+            CTRPipeline(cfg.n_sparse, cfg.rows_per_field, b).batch_at(0)["ids"])
+        ids_dev = ids.to(dev)
+        fn = lambda: torch.sigmoid(D.forward(p_dev, ids_dev, cfg))  # noqa: E731
+        got = path.first(f"deepfm {shape}", fn, 2)
+        rows = ids[:prefix] if prefix else ids
+        with torch.inference_mode():
+            want = torch.sigmoid(D.forward(params, rows, cfg))
+        err = float_err(got[:prefix].cpu() if prefix else got.cpu(), want,
+                        **GNN_SMALL_TOL)
+        flat = (ids_dev + torch.arange(cfg.n_sparse, device=dev,
+                                       dtype=torch.int32)
+                * cfg.rows_per_field).reshape(-1)
+        n_bytes = (distinct_row_bytes(flat, cfg.embed_dim + 1)
+                   + tree_bytes(p_dev["mlp"]) + ids.numel() * 4 + b * 4)
+        out[shape] = path.measure(
+            f"deepfm {shape}", fn, b * (mlp_flops + fm_flops), n_bytes, 2,
+            max_abs_err_vs_cpu=err,
+            rows_held_to_cpu=prefix or b)
+        del ids_dev, got, flat
+    sh = RECSYS_SHAPES["retrieval_cand"]
+    nc, f = sh["n_candidates"], cfg.n_item_fields
+    user = torch.from_numpy(
+        CTRPipeline(cfg.n_sparse, cfg.rows_per_field, 1).batch_at(1)["ids"])
+    cand = torch.from_numpy(
+        CTRPipeline(f, cfg.rows_per_field, nc).batch_at(2)["ids"])
+    user_dev, cand_dev = user.to(dev), cand.to(dev)
+    fn = lambda: D.retrieval_scores(p_dev, user_dev, cand_dev, cfg)  # noqa: E731
+    got = path.first("deepfm retrieval_cand", fn, 2)
+    with torch.inference_mode():
+        want = D.retrieval_scores(params, user, cand, cfg)
+    err = float_err(got.cpu(), want, **GNN_SMALL_TOL)
+    flat = (cand_dev + torch.arange(f, device=dev, dtype=torch.int32)
+            * cfg.rows_per_field).reshape(-1)
+    n_bytes = (distinct_row_bytes(flat, cfg.embed_dim) + cand.numel() * 4
+               + nc * 4 + cfg.n_sparse * (cfg.embed_dim + 1) * 4)
+    out["retrieval_cand"] = path.measure(
+        "deepfm retrieval_cand", fn, nc * (f + 1) * cfg.embed_dim * 2,
+        n_bytes, 2, max_abs_err_vs_cpu=err)
+    del params, p_dev
+    torch.cuda.empty_cache()
+    return out
+
+
+def gnn_minibatch_lg(dev, path: ModelPath) -> dict:
+    """(c) GraphCast at published width and depth at minibatch_lg's device
+    dims (169,984 grid nodes, 168,960 edges; 42,496 mesh nodes, 297,472
+    mesh edges), float32 and bf16 compute_dtype, and MeshGraphNet (15 x
+    128) on a graph of the same dims, on the card: outputs finite, no host
+    sync, GraphCast's bf16 run within a stated bound of its float32 run,
+    MeshGraphNet against the CPU port."""
+    from repro_torch.configs.registry import (
+        GNN_SHAPES, _gnn_cfg_for_shape, _gnn_dims, _gnn_model_flops,
+        _gnn_module)
+    from repro_torch.data.graphs import make_full_graph, to_device
+
+    sh = GNN_SHAPES["minibatch_lg"]
+    out = {}
+    dims = _gnn_dims("graphcast", sh, 1)
+    cfg = arch_config("graphcast")
+    t = time.perf_counter()
+    g_np = make_full_graph("graphcast", dims["n"], dims["e"], dims["e"],
+                           cfg.n_vars, sh["n_classes"])
+    g_dev = to_device(g_np, dev)
+    log(f"graphcast minibatch_lg graph: {g_np.n_nodes} grid nodes, "
+        f"{g_np.n_edges} edges, {g_np.extras['mesh_feat_init'].shape[0]} "
+        f"mesh nodes, {g_np.extras['mesh_src'].shape[0]} mesh edges, built "
+        f"and copied in {time.perf_counter() - t:.2f} s")
+    check(dims["n_mesh"] == g_np.extras["mesh_feat_init"].shape[0],
+          "GraphCast mesh nodes differ from the registry's")
+    mod = _gnn_module("graphcast")
+    p_dev = mod.init_params(torch.Generator(device=dev).manual_seed(30), cfg)
+    flops = _gnn_model_flops("graphcast", cfg, gnn_dims_of(g_np, cfg)) / 3
+    n_seg = segment_launches_per_forward("graphcast", cfg, g_dev)
+    res = {}
+    for label, dt in (("float32", torch.float32), ("bf16", torch.bfloat16)):
+        c = dataclasses.replace(cfg, compute_dtype=dt)
+        fn = lambda c=c: mod.apply(p_dev, g_dev, c)  # noqa: E731
+        name = f"graphcast minibatch_lg {label}"
+        res[label] = path.first(name, fn, n_seg)
+        check(res[label].shape == (dims["n"], cfg.n_vars)
+              and bool(torch.isfinite(res[label]).all()),
+              f"{name}: outputs not finite or of the wrong shape")
+        n_bytes = tree_bytes(p_dev) + tree_bytes(list(g_dev[:-1])) \
+            + tree_bytes(g_dev.extras) + tree_bytes(res[label])
+        out[name] = path.measure(name, fn, flops, n_bytes, n_seg, repeats=3,
+                                 profile_calls=2)
+    diff = (res["bf16"] - res["float32"]).abs()
+    rel = float(diff.norm() / res["float32"].norm())
+    gap = float(diff.max())
+    log(f"graphcast minibatch_lg: bf16 against float32: relative L2 {rel:.5f} "
+        f"(bound {GRAPHCAST_BF16_REL_L2}), max abs {gap:.5f} (bound "
+        f"{GRAPHCAST_BF16_ATOL}), float32 outputs' max "
+        f"{float(res['float32'].abs().max()):.3f}")
+    check(rel <= GRAPHCAST_BF16_REL_L2 and gap <= GRAPHCAST_BF16_ATOL,
+          "graphcast minibatch_lg: bf16 run too far from float32")
+    out["graphcast minibatch_lg bf16"].update(rel_l2_vs_float32=rel,
+                                              max_abs_vs_float32=gap)
+    del res, diff, p_dev, g_dev
+    torch.cuda.empty_cache()
+
+    cfg = _gnn_cfg_for_shape("meshgraphnet", arch_config("meshgraphnet"), dims)
+    g_np = make_full_graph("meshgraphnet", dims["n"], dims["e"], dims["e"],
+                           sh["d_feat"], sh["n_classes"])
+    g_cpu, g_dev = to_device(g_np, "cpu"), to_device(g_np, dev)
+    mod = _gnn_module("meshgraphnet")
+    params = mod.init_params(torch.Generator().manual_seed(31), cfg)
+    p_dev = tree_to(params, dev)
+    fn = lambda: mod.apply(p_dev, g_dev, cfg)  # noqa: E731
+    n_seg = segment_launches_per_forward("meshgraphnet", cfg, g_dev)
+    name = "meshgraphnet minibatch_lg"
+    got = path.first(name, fn, n_seg)
+    check(bool(torch.isfinite(got).all()), f"{name}: outputs not finite")
+    with torch.inference_mode():
+        want = mod.apply(params, g_cpu, cfg)
+    err = float_err(got.cpu(), want, **GNN_FULL_TOL)
+    n_bytes = tree_bytes(p_dev) + tree_bytes(list(g_dev[:-1])) \
+        + tree_bytes(g_dev.extras) + tree_bytes(got)
+    out[name] = path.measure(
+        name, fn, _gnn_model_flops("meshgraphnet", cfg,
+                                   gnn_dims_of(g_np, cfg)) / 3,
+        n_bytes, n_seg, max_abs_err_vs_cpu=err)
+    del params, p_dev, g_dev, g_cpu, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def gnn_phase(dev) -> dict:
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    path = ModelPath(kernels)
+    small = gnn_small(dev, path)
+    published = gnn_published(dev, path)
+    deepfm = deepfm_runs(dev, path)
+    large = gnn_minibatch_lg(dev, path)
+    secs = time.perf_counter() - t0
+    check(path.launches > 0, "segment_reduce was not launched by the models")
+    log(f"phase 11 (GNN and recsys forward): {secs:.1f} s; segment_reduce "
+        f"launched {path.launches} times by the model paths")
+    return {"reduced_err": small, "runs": path.rows,
+            "segment_reduce_launches": path.launches,
+            "seconds": round(secs, 1)}
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -2471,6 +2978,9 @@ def main(argv: list[str]) -> int:
                     "earlier commit's kernels in the same call")
     ap.add_argument("--lm-only", action="store_true",
                     help="phase 10 (LM serving) alone; no result line")
+    ap.add_argument("--gnn-only", action="store_true",
+                    help="the build and phase 11 (GNN and recsys forward) "
+                    "alone; no result line")
     ap.add_argument("--nccl-only", action="store_true",
                     help="phase 9's NCCL run alone (on a host of several "
                     "cards: one rank per card at scale 1000) with the "
@@ -2509,6 +3019,12 @@ def main(argv: list[str]) -> int:
         f"{time.perf_counter() - t:.2f} s")
 
     log(f"tree: {src}")
+    if args.gnn_only:
+        out = gnn_phase(dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"gnn": out}), flush=True)
+        print(card, flush=True)
+        return 0
     if args.nccl_only:
         out = nccl_only(dev)
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2530,15 +3046,20 @@ def main(argv: list[str]) -> int:
     sharded = sharded_phase(dev, full)
     ranks = ranks_phase(dev, full, sharded)
     lm = lm_phase(dev)
+    gnn = gnn_phase(dev)
     for name, row in rows.items():
         row["launches"] = (full["launches"] | api_launches).get(name, 0)
         check(row["launches"] > 0, f"kernel {name} was not launched")
+    seg = rows["segment_reduce"]
+    seg["launches_by_path"] = {"kernel_api": seg["launches"],
+                               "gnn_recsys_forward": gnn["segment_reduce_launches"]}
+    seg["launches"] += gnn["segment_reduce_launches"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     full = {k: full[k] for k in ("launches", "peak_bytes", "queries")}
     del sharded["store"]
     print(json.dumps({"full_scale": full, "matrix": matrix,
                       "serving": serving, "sharded": sharded,
-                      "ranks": ranks, "lm": lm}), flush=True)
+                      "ranks": ranks, "lm": lm, "gnn": gnn}), flush=True)
     print(json.dumps({"stacked": stacked}), flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(card, flush=True)

@@ -1,8 +1,14 @@
-"""Arch registry: arch id -> config module, for the archs this port runs
-(the five LM archs). Each module holds `CONFIG` and `FAMILY`."""
+"""Arch × shape registry: arch id -> config module (each holds `CONFIG`
+and `FAMILY`), the input shapes of each family, and the GNN shape
+bindings (`_gnn_dims`, `_gnn_cfg_for_shape`, `_gnn_model_flops`) that
+size a (gnn arch, shape) cell. `build_cell` and its per-family cells are
+not ported yet."""
 from __future__ import annotations
 
+import dataclasses
 import importlib
+
+import torch
 
 ARCHS: dict[str, str] = {
     # arch id -> config module
@@ -11,12 +17,150 @@ ARCHS: dict[str, str] = {
     "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
     "deepseek-67b": "repro_torch.configs.deepseek_67b",
+    "schnet": "repro_torch.configs.schnet",
+    "graphcast": "repro_torch.configs.graphcast",
+    "gat-cora": "repro_torch.configs.gat_cora",
+    "meshgraphnet": "repro_torch.configs.meshgraphnet",
+    "deepfm": "repro_torch.configs.deepfm",
 }
+
+LM_SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
+GNN_SHAPES = {
+    "full_graph_sm": dict(kind="full", n_nodes=2708, n_edges=10556,
+                          d_feat=1433, n_classes=7),
+    "minibatch_lg": dict(kind="minibatch", n_nodes=232_965,
+                         n_edges=114_615_892, d_feat=602, n_classes=41,
+                         batch_nodes=1024, fanout=(15, 10)),
+    "ogb_products": dict(kind="full", n_nodes=2_449_029, n_edges=61_859_140,
+                         d_feat=100, n_classes=47),
+    "molecule": dict(kind="batched", n_nodes=30, n_edges=64, batch=128,
+                     d_feat=16, n_classes=1),
+}
+RECSYS_SHAPES = {
+    "train_batch": dict(kind="train", batch=65_536),
+    "serve_p99": dict(kind="serve", batch=512),
+    "serve_bulk": dict(kind="serve", batch=262_144),
+    "retrieval_cand": dict(kind="retrieval", batch=1, n_candidates=1_000_448),
+    # n_candidates padded from 1,000,000 to the next multiple of 512 chips
+}
+
+
+def SHAPES_FOR(arch: str) -> dict[str, dict]:
+    return {"lm": LM_SHAPES, "gnn": GNN_SHAPES,
+            "recsys": RECSYS_SHAPES}[family_of(arch)]
 
 
 def family_of(arch: str) -> str:
     return importlib.import_module(ARCHS[arch]).FAMILY
 
 
+def archs_of(family: str) -> list[str]:
+    """The arch ids of one family ("lm", "gnn" or "recsys"), sorted."""
+    return sorted(a for a in ARCHS if family_of(a) == family)
+
+
 def lm_layer_count(arch: str) -> int:
     return importlib.import_module(ARCHS[arch]).CONFIG.n_layers
+
+
+def _all_axes(multi_pod: bool) -> tuple[str, ...]:
+    return ("pod", "data", "model") if multi_pod else ("data", "model")
+
+
+def _round_to(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+# ---------------------------------------------------------------------------
+# GNN cells
+# ---------------------------------------------------------------------------
+
+def _gnn_dims(arch: str, sh: dict, n_dev: int) -> dict:
+    """Device-visible graph dims for a (gnn arch, shape) cell."""
+    kind = sh["kind"]
+    if kind == "minibatch":
+        from repro_torch.models.gnn.sampler import block_capacity
+
+        n, e = block_capacity(sh["batch_nodes"], list(sh["fanout"]))
+    elif kind == "batched":
+        n, e = sh["n_nodes"] * sh["batch"], sh["n_edges"] * sh["batch"]
+    else:
+        n, e = sh["n_nodes"], sh["n_edges"]
+    e = _round_to(e, 512)  # edge dim shards over up to 512 chips
+    n_graphs = sh.get("batch", 1)
+    # Large graphs (>= 1M nodes) shard the node dim over every mesh axis
+    # (padded to 512) and run node/edge activations in bf16: replicated
+    # node tensors do not fit one chip at 2.45M nodes.
+    shard_nodes = n >= 1_000_000
+    if shard_nodes:
+        n = _round_to(n, 512)
+    d = dict(n=n, e=e, n_graphs=n_graphs, d_feat=sh["d_feat"],
+             n_classes=sh["n_classes"], shard_nodes=shard_nodes)
+    # graphcast mesh sizes derive from the shape
+    d["n_mesh"] = _round_to(max(8, n // 4), 512 if shard_nodes else 1)
+    d["e_mesh"] = _round_to(max(64, d["n_mesh"] * 7), 512)
+    return d
+
+
+def _gnn_module(arch: str):
+    from repro_torch.models.gnn import gat, graphcast, meshgraphnet, schnet
+
+    return {"gat-cora": gat, "schnet": schnet, "meshgraphnet": meshgraphnet,
+            "graphcast": graphcast}[arch]
+
+
+def _gnn_node_feat_dim(arch: str, cfg, dims: dict) -> int:
+    if arch == "graphcast":
+        return cfg.n_vars
+    if arch == "schnet":
+        return 1  # schnet reads species/positions from extras
+    return dims["d_feat"]
+
+
+def _gnn_cfg_for_shape(arch: str, cfg, dims: dict, multi_pod: bool = False):
+    """Bind per-shape input dims into the arch config."""
+    if arch == "gat-cora":
+        cfg = dataclasses.replace(cfg, d_in=dims["d_feat"],
+                                  n_classes=dims["n_classes"])
+    if arch == "meshgraphnet":
+        cfg = dataclasses.replace(cfg, d_node_in=dims["d_feat"])
+    if dims.get("shard_nodes") and hasattr(cfg, "node_spec"):
+        # node dim sharded over every axis, blocks remat'd, activations
+        # bf16, gathers/scatters via the MapSQ shuffle, one-shot edge sets
+        # streamed (graphcast only); `apply` refuses it on one device
+        extra = {}
+        if hasattr(cfg, "edge_stream_chunks"):
+            extra["edge_stream_chunks"] = 16
+        cfg = dataclasses.replace(cfg, node_spec=_all_axes(multi_pod),
+                                  remat=True, compute_dtype=torch.bfloat16,
+                                  shuffle_gather=True, **extra)
+    return cfg
+
+
+def _gnn_model_flops(arch: str, cfg, dims: dict) -> float:
+    n, e = dims["n"], dims["e"]
+    if arch == "gat-cora":
+        d_in, h, d = cfg.d_in, cfg.n_heads, cfg.d_hidden
+        fwd = 2 * n * d_in * h * d + 6 * e * h * d
+        fwd += 2 * n * (h * d) * cfg.n_classes + 6 * e * cfg.n_classes
+    elif arch == "schnet":
+        d, r = cfg.d_hidden, cfg.n_rbf
+        per = 2 * e * (r * d + d * d) + 2 * e * d + 6 * n * d * d
+        fwd = cfg.n_interactions * per + 2 * n * d * d
+    elif arch == "meshgraphnet":
+        d = cfg.d_hidden
+        per = 2 * e * (3 * d + d) * d + 2 * n * (2 * d + d) * d
+        fwd = cfg.n_layers * per + 2 * n * cfg.d_node_in * d + 2 * e * 4 * d
+    else:  # graphcast
+        d = cfg.d_hidden
+        nm, em = dims["n_mesh"], dims["e_mesh"]
+        blk = lambda ee, nn: 2 * ee * (3 * d + d) * d + 2 * nn * (2 * d + d) * d
+        fwd = (2 * n * cfg.n_vars * d + blk(e, nm)
+               + cfg.n_layers * blk(em, nm) + blk(e, n)
+               + 2 * n * d * cfg.n_vars)
+    return 3.0 * fwd  # train = fwd + bwd(2x)

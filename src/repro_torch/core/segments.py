@@ -1,5 +1,5 @@
-"""Segment helpers the joins share: everything downstream of "sort by key"
-reasons in contiguous segments.
+"""Segment helpers shared by the joins, GNN aggregation and the embedding
+bag: everything downstream of "sort by key" reasons in contiguous segments.
 """
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ from typing import Sequence
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels.segment_reduce import ops as seg_ops
 
 
 def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -114,3 +115,62 @@ def cumsum_i32(x: torch.Tensor) -> torch.Tensor:
 @cumsum_i32.register_vmap
 def _cumsum_i32_vmap(info, in_dims, x):
     return _rows_cumsum(kernels.lanes_first(x, in_dims[0], info.batch_size)), 0
+
+
+def sorted_segment_sum(data: torch.Tensor, sorted_ids: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """segment_sum specialised to sorted ids (the post-shuffle MapSQ
+    reduce): `kernels.segment_reduce` on a CUDA tensor (float32 or
+    bfloat16, int32 ids), its plain version on a CPU tensor. Trailing dims
+    are summed as one row of their product (1-D data as (n, 1)); ids
+    outside [0, num_segments) are dropped."""
+    out = seg_ops.sorted_segment_sum(data.reshape(data.shape[0], -1), sorted_ids,
+                                 num_segments)
+    return out.reshape(num_segments, *data.shape[1:])
+
+
+def _drop_slot(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """int64 scatter slots: ids outside [0, num_segments) go to a spare slot
+    num_segments, which the caller slices off (jax.ops drops them)."""
+    keep = (segment_ids >= 0) & (segment_ids < num_segments)
+    return torch.where(keep, segment_ids, num_segments).long()
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """jax.ops.segment_sum for ids in any order: a plain scatter-add (the
+    kernel assumes sorted ids), ids outside [0, num_segments) dropped."""
+    flat = data.reshape(data.shape[0], -1)
+    out = flat.new_zeros((num_segments + 1, flat.shape[1])).index_add_(
+        0, _drop_slot(segment_ids, num_segments), flat)
+    return out[:num_segments].reshape(num_segments, *data.shape[1:])
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """jax.ops.segment_max (plain; no kernel): an empty segment is -inf,
+    ids outside [0, num_segments) are dropped."""
+    flat = data.reshape(data.shape[0], -1)
+    slot = _drop_slot(segment_ids, num_segments)[:, None].expand(flat.shape)
+    out = flat.new_full((num_segments + 1, flat.shape[1]), float("-inf"))
+    out = out.scatter_reduce(0, slot, flat, reduce="amax")
+    return out[:num_segments].reshape(num_segments, *data.shape[1:])
+
+
+def _take_clamped(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """x[ids] as jnp indexing gathers: negative ids count from the end,
+    then every id is clamped into range."""
+    n = x.shape[0]
+    return x[torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)]
+
+
+def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """Numerically-stable softmax within segments (GAT edge softmax), over
+    dim 0 of scores (each trailing column on its own)."""
+    seg_max = segment_max(scores, segment_ids, num_segments)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+    shifted = scores - _take_clamped(seg_max, segment_ids)
+    expd = torch.exp(shifted)
+    seg_sum = segment_sum(expd, segment_ids, num_segments)
+    return expd / _take_clamped(seg_sum, segment_ids).clamp_min(1e-30)

@@ -1,0 +1,184 @@
+"""Synthetic graph generators matching the assigned GNN shapes, plus the
+CSR-backed minibatch pipeline (real neighbor sampling, fanout 15-10).
+
+Edges are ALWAYS emitted sorted by dst — the MapSQ Sort phase executed once
+at data-load time, so device-side aggregation is a sorted segment reduce.
+Batches are numpy arrays; `to_device` makes them tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models.gnn.common import GraphBatch
+from repro_torch.models.gnn.sampler import CSRGraph, block_capacity, sample_block
+
+
+def _pad_edges(src, dst, e_cap, n_sentinel):
+    e = len(src)
+    ps = np.full(e_cap, 0, np.int32)
+    pd = np.full(e_cap, n_sentinel - 1, np.int32)
+    ps[:e] = src
+    pd[:e] = dst
+    mask = np.zeros(e_cap, bool)
+    mask[:e] = True
+    return ps, pd, mask
+
+
+def random_graph(rng: np.random.Generator, n: int, e: int,
+                 sorted_dst: bool = True):
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    if sorted_dst:
+        order = np.argsort(dst, kind="stable")
+        src, dst = src[order], dst[order]
+    return src, dst
+
+
+def make_full_graph(arch: str, n: int, e: int, e_cap: int, d_feat: int,
+                    n_classes: int, seed: int = 0,
+                    extras_builder=None) -> GraphBatch:
+    rng = np.random.default_rng(seed)
+    src, dst = random_graph(rng, n, e)
+    ps, pd, emask = _pad_edges(src, dst, e_cap, n)
+    g = GraphBatch(
+        node_feat=np.asarray(rng.normal(size=(n, d_feat)), np.float32),
+        src=ps, dst=pd,
+        node_mask=np.ones(n, bool), edge_mask=emask,
+        graph_ids=np.zeros(n, np.int32),
+        extras={},
+    )
+    return _with_extras(g, arch, rng, n, e_cap, n_classes)
+
+
+def make_molecule_batch(arch: str, n_per: int, e_per: int, batch: int,
+                        n_classes: int, seed: int = 0) -> GraphBatch:
+    rng = np.random.default_rng(seed)
+    n, e = n_per * batch, e_per * batch
+    srcs, dsts, gids = [], [], []
+    for b in range(batch):
+        s, d = random_graph(rng, n_per, e_per)
+        srcs.append(s + b * n_per)
+        dsts.append(d + b * n_per)
+        gids.append(np.full(n_per, b, np.int32))
+    g = GraphBatch(
+        node_feat=np.asarray(rng.normal(size=(n, 16)), np.float32),
+        src=np.concatenate(srcs), dst=np.concatenate(dsts),
+        node_mask=np.ones(n, bool), edge_mask=np.ones(e, bool),
+        graph_ids=np.concatenate(gids),
+        extras={},
+    )
+    return _with_extras(g, arch, rng, n, e, n_classes, n_graphs=batch)
+
+
+def _with_extras(g: GraphBatch, arch: str, rng, n: int, e_cap: int,
+                 n_classes: int, n_graphs: int = 1) -> GraphBatch:
+    ex: dict = {}
+    if arch == "gat-cora":
+        ex["labels"] = rng.integers(0, n_classes, n).astype(np.int32)
+        ex["train_mask"] = rng.random(n) < 0.3
+    elif arch == "schnet":
+        ex["positions"] = np.asarray(rng.normal(size=(n, 3)) * 3, np.float32)
+        ex["species"] = rng.integers(1, 20, n).astype(np.int32)
+        ex["energy"] = np.asarray(rng.normal(size=(n_graphs,)), np.float32)
+        ex["graph_mask"] = np.ones(n_graphs, bool)
+    elif arch == "meshgraphnet":
+        ex["edge_feat"] = np.asarray(rng.normal(size=(e_cap, 4)), np.float32)
+        ex["targets"] = np.asarray(rng.normal(size=(n, 3)), np.float32)
+    elif arch == "graphcast":
+        nm = max(8, n // 4)
+        em = max(64, nm * 7)
+        ms, md = random_graph(rng, nm, em)
+        m2s = rng.integers(0, nm, e_cap).astype(np.int32)
+        m2d = np.sort(rng.integers(0, n, e_cap).astype(np.int32))
+        ex.update(
+            mesh_feat_init=np.zeros((nm, 1), np.float32),
+            g2m_feat=np.asarray(rng.normal(size=(e_cap, 4)), np.float32),
+            mesh_edge_feat=np.asarray(rng.normal(size=(em, 4)), np.float32),
+            mesh_src=ms, mesh_dst=md, mesh_mask=np.ones(em, bool),
+            m2g_feat=np.asarray(rng.normal(size=(e_cap, 4)), np.float32),
+            m2g_src=m2s, m2g_dst=m2d, m2g_mask=np.ones(e_cap, bool),
+            # targets dim tracks the grid feature dim (= the model's n_vars)
+            targets=np.asarray(
+                rng.normal(size=(n, g.node_feat.shape[1])), np.float32),
+        )
+        # graphcast: GraphBatch.dst indexes MESH nodes (g2m edges)
+        g = g._replace(dst=np.sort(rng.integers(0, nm, e_cap))
+                       .astype(np.int32))
+    return g._replace(extras=ex)
+
+
+@dataclasses.dataclass
+class MinibatchPipeline:
+    """The minibatch_lg pipeline: CSR graph + layered neighbor sampling.
+
+    RNG state advances deterministically with `step` (checkpointable).
+    """
+
+    arch: str
+    n_nodes: int
+    n_edges: int
+    d_feat: int
+    n_classes: int
+    batch_nodes: int = 1024
+    fanout: tuple[int, ...] = (15, 10)
+    seed: int = 0
+    step: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        src, dst = random_graph(rng, self.n_nodes, self.n_edges,
+                                sorted_dst=False)
+        self.csr = CSRGraph.from_edges(src, dst, self.n_nodes)
+        self.feats = np.asarray(
+            rng.normal(size=(self.n_nodes, self.d_feat)), np.float32
+        )
+        self.labels = rng.integers(0, self.n_classes, self.n_nodes).astype(
+            np.int32
+        )
+
+    def __next__(self) -> GraphBatch:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, 1, self.step])
+        )
+        seeds = rng.integers(0, self.n_nodes, self.batch_nodes)
+        nodes, src, dst, emask = sample_block(self.csr, seeds,
+                                              list(self.fanout), rng)
+        n_cap, e_cap = block_capacity(self.batch_nodes, list(self.fanout))
+        assert len(nodes) == n_cap and len(src) == e_cap
+        train_mask = np.zeros(n_cap, bool)
+        train_mask[: self.batch_nodes] = True
+        g = GraphBatch(
+            node_feat=self.feats[nodes],
+            src=src.astype(np.int32), dst=dst.astype(np.int32),
+            node_mask=np.ones(n_cap, bool), edge_mask=emask,
+            graph_ids=np.zeros(n_cap, np.int32),
+            extras={"labels": self.labels[nodes], "train_mask": train_mask},
+        )
+        self.step += 1
+        return g
+
+    def state_dict(self):
+        return {"seed": self.seed, "step": self.step}
+
+    def load_state_dict(self, st):
+        self.seed, self.step = int(st["seed"]), int(st["step"])
+
+
+def to_device(g: GraphBatch, device=None) -> GraphBatch:
+    """A GraphBatch of numpy arrays as tensors on `device` (the card unless
+    the caller passes another), every array's type kept (int32 ids stay
+    int32, as the segment kernel takes them)."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return GraphBatch(
+        *(t(a) for a in g[:-1]),
+        extras={k: t(v) for k, v in g.extras.items()},
+    )

@@ -129,11 +129,11 @@ def serve_lm(arch: str, device: str | None = None) -> None:
 
 
 def main() -> None:
-    from repro_torch.configs.registry import ARCHS
+    from repro_torch.configs.registry import archs_of
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["sparql", "lm"], default="sparql")
-    ap.add_argument("--arch", choices=sorted(ARCHS), default="gemma3-1b",
+    ap.add_argument("--arch", choices=archs_of("lm"), default="gemma3-1b",
                     help="--mode lm: the LM arch (its reduced config)")
     ap.add_argument("--scale", type=int, default=2)
     ap.add_argument("--n-queries", type=int, default=4)

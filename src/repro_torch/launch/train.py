@@ -1,5 +1,6 @@
-"""Training launcher (to come): for now only `reduced_lm`, the cut-down
-LM config that `serve --mode lm` and the tests run. The launcher's `main`
+"""Training launcher (to come): for now only `reduced_lm` and
+`reduced_gnn`, the cut-down configs that `serve --mode lm`, the tests and
+the smoke run. The launcher's `main`
 (registry config → jitted step → Trainer with checkpoints) comes with the
 training slice of the port."""
 from __future__ import annotations
@@ -18,3 +19,13 @@ def reduced_lm(cfg, vocab=512):
         sliding_window=min(cfg.sliding_window, 8) if cfg.sliding_window
         else 0, kv_chunk=16, fsdp=False,
     )
+
+
+def reduced_gnn(arch: str, cfg):
+    """The reduced config of a GNN arch that the archs' smoke tests run
+    (any config dataclass of the arch: the reference's or this port's)."""
+    changes = {"schnet": dict(n_interactions=2, d_hidden=16, n_rbf=8),
+               "graphcast": dict(n_layers=2, d_hidden=16, n_vars=6),
+               "gat-cora": dict(d_in=12, n_classes=3),
+               "meshgraphnet": dict(n_layers=2, d_hidden=16, d_node_in=8)}
+    return dataclasses.replace(cfg, **changes[arch])

@@ -1,1 +1,2 @@
-"""Model code: the LM transformer family (dense and MoE blocks)."""
+"""Model code: the LM transformer family (dense and MoE blocks), the GNN
+family (`gnn/`) and DeepFM (`recsys/`)."""

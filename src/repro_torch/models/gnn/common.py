@@ -1,0 +1,210 @@
+"""Shared GNN machinery: padded static-shape graph batches, MLPs, and
+message passing built on `repro_torch.core.segments` / the segment_reduce
+kernel.
+
+Aggregation is edge-index gathers + a sorted segment sum over dst-sorted
+edges: exactly the MapSQ reduce with node ids as join keys. On a CUDA
+tensor every sorted aggregation launches `kernels.segment_reduce`.
+
+One device only: node sharding (`node_spec`) and the MapSQ shuffle
+gather/scatter across devices (`models/gnn/distributed.py` in the
+reference) raise NotImplementedError.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.segments import (
+    segment_softmax, segment_sum, sorted_segment_sum,
+)
+
+
+class GraphBatch(NamedTuple):
+    """Static-shape (padded) graph. Edges are SORTED BY dst at build time.
+
+    node_feat: (N, F) float; src/dst: (E,) int32; edge_mask: (E,) bool;
+    node_mask: (N,) bool; graph_ids: (N,) int32 (molecule batching; 0 for
+    single graphs); extras: arch-specific arrays (positions for schnet,
+    mesh graphs for graphcast, ...).
+    """
+
+    node_feat: Any
+    src: Any
+    dst: Any
+    node_mask: Any
+    edge_mask: Any
+    graph_ids: Any
+    extras: dict[str, Any]
+
+    @property
+    def n_nodes(self) -> int:
+        return self.node_feat.shape[0]
+
+    @property
+    def n_edges(self) -> int:
+        return self.src.shape[0]
+
+
+def check_one_device(node_spec: tuple[str, ...], shuffle: bool = False) -> None:
+    """Refuse what needs several devices: node sharding and the shuffle
+    gather/scatter (ROADMAP Queue 1 item 2.3)."""
+    if node_spec or shuffle:
+        raise NotImplementedError(
+            "node sharding (node_spec) and the shuffle gather run across "
+            f"devices, which this port does not yet do; got node_spec="
+            f"{node_spec!r}, shuffle={shuffle} (ROADMAP Queue 1 item 2.3)"
+        )
+
+
+def aggregate(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int,
+              edge_mask: torch.Tensor | None = None,
+              sorted_edges: bool = True,
+              node_spec: tuple[str, ...] = ()) -> torch.Tensor:
+    """Sum messages into destination nodes (the MapSQ reduce).
+
+    dst must be sorted ascending when sorted_edges=True (our pipelines sort
+    at load time): the sorted segment sum, the kernel on the card. With
+    sorted_edges=False, a plain scatter-add. Ids outside [0, n_nodes) drop
+    out.
+    """
+    if edge_mask is not None:
+        messages = torch.where(edge_mask[:, None], messages, 0)
+    if sorted_edges:
+        out = sorted_segment_sum(messages, dst, n_nodes)
+    else:
+        out = segment_sum(messages, dst, n_nodes)
+    return constrain_nodes(out, node_spec)
+
+
+def constrain_nodes(x: torch.Tensor, node_spec: tuple[str, ...]) -> torch.Tensor:
+    """Shard dim 0 (nodes) over `node_spec` axes: a no-op when unset."""
+    check_one_device(node_spec)
+    return x
+
+
+def take_nodes(x: torch.Tensor, ids: torch.Tensor, edge_mask: torch.Tensor,
+               node_spec: tuple[str, ...] = (),
+               shuffle: bool = False) -> torch.Tensor:
+    """x[ids], by local indexing; node sharding and the shuffle gather
+    (several devices) raise."""
+    check_one_device(node_spec, shuffle)
+    return x[ids]
+
+
+def aggregate_nodes(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int,
+                    edge_mask: torch.Tensor,
+                    node_spec: tuple[str, ...] = (),
+                    shuffle: bool = False) -> torch.Tensor:
+    """aggregate() in the reference's form that can route through the
+    shuffle scatter; node sharding and the shuffle (several devices)
+    raise."""
+    check_one_device(node_spec, shuffle)
+    return aggregate(messages, dst, n_nodes, edge_mask)
+
+
+def aggregate_softmax(scores: torch.Tensor, values: torch.Tensor,
+                      dst: torch.Tensor, n_nodes: int,
+                      edge_mask: torch.Tensor) -> torch.Tensor:
+    """Attention aggregation (GAT): segment softmax over incoming edges,
+    then weighted sum. scores: (E, H); values: (E, H, D) -> (N, H, D).
+    Every head at once: the segment ops treat each column on its own, so
+    the weighted sum is one sorted segment sum of width H * D."""
+    scores = torch.where(edge_mask[:, None], scores, -1e30)
+    a = segment_softmax(scores, dst, n_nodes)
+    a = torch.where(edge_mask[:, None], a, 0.0)
+    return sorted_segment_sum(values * a[:, :, None], dst, n_nodes)
+
+
+# ---------------------------------------------------------------------------
+# Tiny NN toolbox
+# ---------------------------------------------------------------------------
+
+def normal(gen: torch.Generator | None, shape, std: float,
+           device=None) -> torch.Tensor:
+    """A float32 normal times `std`, drawn from `gen` on its device (or, when
+    `gen` is None, from torch's default generator on `device`; "meta":
+    the shape alone)."""
+    dev = gen.device if gen is not None else device
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=dev) * std
+
+
+def init_mlp(gen: torch.Generator | None, sizes: list[int],
+             dtype=torch.float32, device=None) -> list[dict]:
+    ps = []
+    for a, b in zip(sizes[:-1], sizes[1:]):
+        w = normal(gen, (a, b), a**-0.5, device)
+        ps.append({"w": w.to(dtype), "b": torch.zeros((b,), dtype=dtype,
+                                                       device=w.device)})
+    return ps
+
+
+def _linear(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """x @ w + b in the promoted type of x and the weights, as JAX promotes
+    (bfloat16 activations against float32 weights compute in float32)."""
+    dt = torch.promote_types(x.dtype, p["w"].dtype)
+    return x.to(dt) @ p["w"].to(dt) + p["b"]
+
+
+def mlp(ps: list[dict], x: torch.Tensor, act=F.relu,
+        final_act: bool = False) -> torch.Tensor:
+    for i, p in enumerate(ps):
+        x = _linear(x, p)
+        if i < len(ps) - 1 or final_act:
+            x = act(x)
+    return x
+
+
+def layer_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """In float32, no affine; the population variance (jnp.var), which
+    torch.var gives only with correction=0."""
+    x32 = x.float()
+    m = x32.mean(dim=-1, keepdim=True)
+    v = x32.var(dim=-1, keepdim=True, correction=0)
+    return (x32 - m) * torch.rsqrt(v + eps)
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+    err = torch.where(mask[:, None], (pred - target) ** 2, 0.0)
+    return err.sum() / (mask.sum() * pred.shape[-1]).clamp_min(1)
+
+
+def masked_ce(logits: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
+    nll = torch.where(mask, lse - ll, 0.0)
+    return nll.sum() / mask.sum().clamp_min(1)
+
+
+# ---------------------------------------------------------------------------
+# Weights from the reference
+# ---------------------------------------------------------------------------
+
+def tree_from_numpy(tree, like, device, path: str = "params"):
+    """The reference's params as numpy arrays (`jax.tree.map(np.asarray,
+    params)`) as this port's on `device`: `like` is the port's params of
+    the same config (shapes only, e.g. on "meta"). The same nested
+    dict / list structure and shapes, every leaf bit for bit; a key,
+    length or shape that differs raises."""
+    if isinstance(like, dict):
+        if not isinstance(tree, dict) or set(tree) != set(like):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{path}: keys {got}, expected {sorted(like)}")
+        return {k: tree_from_numpy(tree[k], v, device, f"{path}/{k}")
+                for k, v in like.items()}
+    if isinstance(like, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(like):
+            raise ValueError(f"{path}: expected a list of {len(like)}")
+        return [tree_from_numpy(t, v, device, f"{path}[{i}]")
+                for i, (t, v) in enumerate(zip(tree, like))]
+    arr = np.array(tree, copy=True, order="C")  # writable, owned by torch
+    if tuple(arr.shape) != tuple(like.shape):
+        raise ValueError(f"{path}: shape {arr.shape}, expected "
+                         f"{tuple(like.shape)}")
+    return torch.from_numpy(arr).to(device)

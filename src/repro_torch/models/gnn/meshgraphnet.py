@@ -1,0 +1,82 @@
+"""MeshGraphNet (arXiv:2010.03409): encode-process-decode with residual
+edge/node update blocks. n_layers=15, d=128, 2-layer MLPs + LayerNorm.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models.gnn import common as C
+
+
+@dataclasses.dataclass(frozen=True)
+class MGNConfig:
+    n_layers: int = 15
+    d_hidden: int = 128
+    mlp_layers: int = 2
+    d_node_in: int = 8
+    d_edge_in: int = 4
+    d_out: int = 3
+    # axes the node dim shards over on large graphs (several devices only)
+    node_spec: tuple[str, ...] = ()
+    remat: bool = False  # rematerialization: no effect on a forward
+    compute_dtype: object = None  # a torch dtype (bf16 on large graphs)
+    shuffle_gather: bool = False  # MapSQ shuffle gather/scatter (several devices)
+
+
+def _mlp_sizes(cfg: MGNConfig, d_in: int) -> list[int]:
+    return [d_in] + [cfg.d_hidden] * cfg.mlp_layers
+
+
+def init_params(gen: torch.Generator | None, cfg: MGNConfig, *,
+                device=None) -> dict:
+    """Seeded random weights drawn from `gen` on its device (`gen=None`:
+    on `device`, e.g. "meta" for the shapes alone)."""
+    d = cfg.d_hidden
+    blocks = []
+    for _ in range(cfg.n_layers):
+        blocks.append({
+            "edge": C.init_mlp(gen, _mlp_sizes(cfg, 3 * d), device=device),
+            "node": C.init_mlp(gen, _mlp_sizes(cfg, 2 * d), device=device),
+        })
+    return {
+        "enc_node": C.init_mlp(gen, _mlp_sizes(cfg, cfg.d_node_in),
+                               device=device),
+        "enc_edge": C.init_mlp(gen, _mlp_sizes(cfg, cfg.d_edge_in),
+                               device=device),
+        "blocks": blocks,
+        "dec": C.init_mlp(gen, [d, d, cfg.d_out], device=device),
+    }
+
+
+def params_from_numpy(tree: dict, cfg: MGNConfig, device=None) -> dict:
+    """The reference's params (numpy leaves) on `device` (the card unless
+    the caller passes another), bit for bit."""
+    return C.tree_from_numpy(tree, init_params(None, cfg, device="meta"),
+                             resolve_device(device))
+
+
+def apply(params: dict, g: C.GraphBatch, cfg: MGNConfig) -> torch.Tensor:
+    C.check_one_device(cfg.node_spec, cfg.shuffle_gather)
+    n = g.n_nodes
+    dt = cfg.compute_dtype or g.node_feat.dtype
+    x = C.layer_norm(C.mlp(params["enc_node"], g.node_feat.to(dt))).to(dt)
+    e = C.layer_norm(C.mlp(params["enc_edge"],
+                           g.extras["edge_feat"].to(dt))).to(dt)
+    for p in params["blocks"]:
+        xs = C.take_nodes(x, g.src, g.edge_mask)
+        xd = C.take_nodes(x, g.dst, g.edge_mask)
+        e_in = torch.cat([e, xs, xd], dim=-1)
+        e = e + C.layer_norm(C.mlp(p["edge"], e_in)).to(dt)
+        agg = C.aggregate_nodes(e, g.dst, n, g.edge_mask)
+        x = x + C.layer_norm(
+            C.mlp(p["node"], torch.cat([x, agg], dim=-1))).to(dt)
+    out = C.mlp(params["dec"], x)
+    return torch.where(g.node_mask[:, None], out, 0.0)
+
+
+def loss_fn(params, g: C.GraphBatch, cfg: MGNConfig):
+    pred = apply(params, g, cfg)
+    return C.mse_loss(pred, g.extras["targets"], g.node_mask)

@@ -886,3 +886,147 @@ def test_lm_on_the_card_equals_the_cpu(cuda, arch, dtype):
                                       cpu.generate(prompts, 8))
     else:
         torch.testing.assert_close(got, want, rtol=0, atol=5e-2)
+
+
+GNN_CASES = {
+    # name: (arch, changes to the reduced config, make_full_graph arguments)
+    "gat-cora": ("gat-cora", {}, (40, 90, 96, 12, 3)),
+    "schnet": ("schnet", {}, (40, 90, 96, 1, 3)),
+    "meshgraphnet": ("meshgraphnet", {}, (40, 90, 96, 8, 3)),
+    "graphcast": ("graphcast", {}, (40, 90, 96, 6, 3)),
+    "graphcast-streamed": ("graphcast", {"edge_stream_chunks": 4},
+                           (300, 2000, 2048, 6, 3)),
+    "graphcast-bf16": ("graphcast", {"compute_dtype": torch.bfloat16},
+                       (40, 90, 96, 6, 3)),
+}
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _without_sync(fn):
+    """fn() with sync debugging at "error": a host sync inside raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("case", sorted(GNN_CASES))
+def test_gnn_on_the_card_equals_the_cpu(cuda, case):
+    """The reduced config of each GNN arch, the same seeded weights on the
+    card and on the CPU port: the forward (with sync debugging at "error",
+    every aggregation one segment_reduce launch) and the loss within
+    rtol/atol 1e-4 in float32, 5e-2 with a bf16 compute_dtype. TF32 off."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.configs.registry import ARCHS, _gnn_module
+    from repro_torch.data.graphs import make_full_graph, to_device
+    from repro_torch.launch.train import reduced_gnn
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    arch, changes, graph = GNN_CASES[case]
+    cfg = dataclasses.replace(
+        reduced_gnn(arch, importlib.import_module(ARCHS[arch]).CONFIG),
+        **changes)
+    mod = _gnn_module(arch)
+    g_np = make_full_graph(arch, *graph)
+    params = mod.init_params(torch.Generator().manual_seed(0), cfg)
+    g_cpu, g_dev = to_device(g_np, "cpu"), to_device(g_np, cuda)
+    p_dev = _tree_to(params, cuda)
+    kernels.LAUNCHES.clear()
+    got = _without_sync(lambda: mod.apply(p_dev, g_dev, cfg)).cpu()
+    assert kernels.LAUNCHES["segment_reduce"] > 0
+    loss = _without_sync(lambda: mod.loss_fn(p_dev, g_dev, cfg)).cpu()
+    with torch.inference_mode():
+        want = mod.apply(params, g_cpu, cfg)
+        want_loss = mod.loss_fn(params, g_cpu, cfg)
+    tol = 5e-2 if "compute_dtype" in changes else 1e-4
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    torch.testing.assert_close(loss, want_loss, rtol=tol, atol=tol)
+
+
+def test_deepfm_on_the_card_equals_the_cpu(cuda):
+    """DeepFM's small config (and its published embedding width, 10):
+    sigmoid(forward), bce_loss and retrieval_scores, card against the CPU
+    port within rtol/atol 1e-4, the forward with sync debugging at
+    "error" launching segment_reduce for both bags."""
+    from repro_torch.data.recsys import CTRPipeline
+    from repro_torch.models.recsys import deepfm as D
+
+    for cfg in (D.DeepFMConfig(n_sparse=6, embed_dim=4, mlp_dims=(16, 16),
+                               rows_per_field=50),
+                D.DeepFMConfig(n_sparse=39, embed_dim=10,
+                               mlp_dims=(40, 40, 40), rows_per_field=300)):
+        params = D.init_params(torch.Generator().manual_seed(1), cfg)
+        p_dev = _tree_to(params, cuda)
+        b = CTRPipeline(cfg.n_sparse, cfg.rows_per_field, 64).batch_at(0)
+        ids, labels = torch.from_numpy(b["ids"]), torch.from_numpy(b["labels"])
+        cand = ids[:, :cfg.n_item_fields] % cfg.rows_per_field
+        ids_dev, labels_dev, cand_dev = (ids.to(cuda), labels.to(cuda),
+                                         cand.to(cuda))
+        kernels.LAUNCHES.clear()
+        probs = _without_sync(
+            lambda: torch.sigmoid(D.forward(p_dev, ids_dev, cfg))).cpu()
+        assert kernels.LAUNCHES["segment_reduce"] == 2
+        loss = _without_sync(
+            lambda: D.bce_loss(p_dev, ids_dev, labels_dev, cfg)).cpu()
+        scores = _without_sync(
+            lambda: D.retrieval_scores(p_dev, ids_dev[:1], cand_dev, cfg)).cpu()
+        with torch.inference_mode():
+            torch.testing.assert_close(
+                probs, torch.sigmoid(D.forward(params, ids, cfg)),
+                rtol=1e-4, atol=1e-4)
+            torch.testing.assert_close(
+                loss, D.bce_loss(params, ids, labels, cfg), rtol=1e-4,
+                atol=1e-4)
+            torch.testing.assert_close(
+                scores, D.retrieval_scores(params, ids[:1], cand, cfg),
+                rtol=1e-4, atol=1e-4)
+
+
+def test_gnn_segment_ops_on_the_card_launch_the_kernel(cuda):
+    """core.segments.sorted_segment_sum, gnn.common.aggregate and
+    deepfm.embedding_bag_local launch segment_reduce on CUDA tensors (1-D,
+    3-D and width-1 data too) and equal the plain version; a type the
+    kernel does not take raises, with no route to the plain version."""
+    from repro_torch.core import segments as S
+    from repro_torch.models.gnn import common as C
+    from repro_torch.models.recsys import deepfm as D
+
+    gen = torch.Generator().manual_seed(3)
+    ids = torch.sort(torch.randint(-2, 70, (500,), generator=gen,
+                                   dtype=torch.int32)).values
+    for shape in ((500,), (500, 1), (500, 4, 5)):
+        data = torch.randn(shape, generator=gen)
+        kernels.LAUNCHES.clear()
+        got = S.sorted_segment_sum(data.to(cuda), ids.to(cuda), 64)
+        assert kernels.LAUNCHES["segment_reduce"] == 1
+        torch.testing.assert_close(got.cpu(), S.sorted_segment_sum(data, ids, 64),
+                                   rtol=1e-5, atol=1e-5)
+    msg = torch.randn(500, 8, generator=gen)
+    mask = torch.rand(500, generator=gen) < 0.9
+    kernels.LAUNCHES.clear()
+    got = C.aggregate(msg.to(cuda), ids.to(cuda), 64, mask.to(cuda))
+    assert kernels.LAUNCHES["segment_reduce"] == 1
+    torch.testing.assert_close(got.cpu(), C.aggregate(msg, ids, 64, mask),
+                               rtol=1e-5, atol=1e-5)
+    table = torch.randn(90, 10, generator=gen)
+    flat = torch.randint(-3, 95, (500,), generator=gen, dtype=torch.int32)
+    kernels.LAUNCHES.clear()
+    got = D.embedding_bag_local(table.to(cuda), flat.to(cuda), ids.to(cuda), 64)
+    assert kernels.LAUNCHES["segment_reduce"] == 1
+    torch.testing.assert_close(
+        got.cpu(), D.embedding_bag_local(table, flat, ids, 64),
+        rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        S.sorted_segment_sum(msg.double().to(cuda), ids.to(cuda), 64)

@@ -49,6 +49,20 @@ def test_port_imports_without_jax_or_reference():
         "repro_torch.models.moe",
         "repro_torch.models.transformer",
         "repro_torch.launch.train",
+        "repro_torch.models.gnn.common",
+        "repro_torch.models.gnn.gat",
+        "repro_torch.models.gnn.schnet",
+        "repro_torch.models.gnn.meshgraphnet",
+        "repro_torch.models.gnn.graphcast",
+        "repro_torch.models.gnn.sampler",
+        "repro_torch.models.recsys.deepfm",
+        "repro_torch.data.graphs",
+        "repro_torch.data.recsys",
+        "repro_torch.configs.gat_cora",
+        "repro_torch.configs.schnet",
+        "repro_torch.configs.meshgraphnet",
+        "repro_torch.configs.graphcast",
+        "repro_torch.configs.deepfm",
     ):
         assert m in mods, m
     code = (
@@ -96,3 +110,34 @@ def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
         raise AssertionError("QueryEngine() ran without a card")
     assert QueryEngine(store, device="cpu").device == torch.device("cpu")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_graphs_and_weights_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    from repro_torch.data import graphs
+    from repro_torch.models.gnn import gat
+    from repro_torch.models.recsys import deepfm
+
+    g = graphs.make_full_graph("gat-cora", 20, 40, 48, 12, 3)
+    cfg = gat.GATConfig(d_in=12, n_classes=3)
+    tree = {"layers": [{k: v.numpy() for k, v in layer.items()} for layer in
+                       gat.init_params(torch.Generator(), cfg)["layers"]]}
+    dcfg = deepfm.DeepFMConfig(n_sparse=2, embed_dim=4, mlp_dims=(8,),
+                               rows_per_field=10)
+    dtree = deepfm.init_params(torch.Generator(), dcfg)
+    dtree = {"table": dtree["table"].numpy(), "fm_w": dtree["fm_w"].numpy(),
+             "bias": dtree["bias"].numpy(),
+             "mlp": [{k: v.numpy() for k, v in p.items()}
+                     for p in dtree["mlp"]]}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: graphs.to_device(g),
+                 lambda: gat.params_from_numpy(tree, cfg),
+                 lambda: deepfm.params_from_numpy(dtree, dcfg)):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "device='cpu'" in str(e)
+        else:
+            raise AssertionError("placed on the CPU without being asked")
+    assert graphs.to_device(g, "cpu").src.device.type == "cpu"
+    assert gat.params_from_numpy(tree, cfg, "cpu")["layers"][0]["w"].shape == \
+        (12, 8, 8)

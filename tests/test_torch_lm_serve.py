@@ -36,13 +36,13 @@ from repro.core import compat
 from repro.launch.train import reduced_lm as ref_reduced_lm
 from repro.models import transformer as RT
 from repro.serve.decode import Generator as RefGenerator
-from repro_torch.configs.registry import ARCHS, family_of, lm_layer_count
+from repro_torch.configs.registry import ARCHS, archs_of, family_of, lm_layer_count
 from repro_torch.launch.train import reduced_lm
 from repro_torch.models import transformer as T
 from repro_torch.serve.decode import Generator
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
-LM_ARCHS = sorted(ARCHS)
+LM_ARCHS = archs_of("lm")
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 B, S0, N_NEW = 2, 32, 8
