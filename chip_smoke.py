@@ -138,13 +138,37 @@ Phases (any failure ends the run with a non-zero exit and no "ok" line):
      FLOPs over the float32 rate, TF32 off, or bytes over HBM), peak
      memory, device launches, card busy time and segment_reduce's card
      time (profiler). TF32 is off throughout.
- 12. summary — the stacked-forms line, the kernels line, the card line,
+ 12. training — (a) segment_reduce under autograd at the GraphCast
+     processor's shape (float32, bf16) and at DeepFM's train_batch bags,
+     with dropped ids: the forward bit-equal to the kernel's without a
+     gradient, the backward equal to the plain version's (a gather); (b)
+     one float32 train step of each reduced LM arch (also with two
+     micro-batches) and of gemma3-1b at full width with 2 layers, card
+     against the CPU port (metrics within 1e-4, every updated leaf within
+     1e-5); 30 steps of `python -m repro_torch.launch.train --arch
+     olmoe-1b-7b` (its main) lowering the mean loss; a crash after step 6
+     and a restart (run_with_restarts) bit-equal to the uninterrupted run;
+     (c) gemma3-1b at full width and depth in bf16, remat on, batch 2 x
+     4096: 6 Trainer steps, every one finite, with async checkpoints every
+     3 steps and the last restored bit for bit (host snapshot ms, write and
+     restore seconds); (d) each GNN arch's reduced config (MeshGraphNet and
+     GraphCast also with remat, GraphCast streamed) and DeepFM's small
+     config: every gradient leaf card against the CPU port (relative L2
+     1e-4) and one registry train step (params within 1e-5); (e) train
+     steps of gat-cora on full_graph_sm, schnet on molecule, MeshGraphNet
+     and GraphCast (remat) at minibatch_lg's dims, DeepFM at train_batch
+     with its full table. Every GNN and DeepFM step launches segment_reduce
+     exactly as often as its aggregations need (again for each
+     rematerialized block). Each timed config: step ms (p50, CUDA events)
+     beside its bound, tokens or examples a second, peak memory, device
+     launches and card busy ms a step (profiler), the optimizer's ms apart.
+ 13. summary — the stacked-forms line, the kernels line, the card line,
      then the result line.
 
-Each of the paths of phases 3, 5, 6, 7, 8, 9 and 11 runs with the launch counts
-set to 0 just before it and read just after (in phase 9 on each rank); the
-kernels line reports each kernel's launches from the path that runs it
-(segment_reduce's: the kernel API's and phase 11's, also apart).
+Each of the paths of phases 3, 5, 6, 7, 8, 9, 11 and 12 runs with the launch
+counts set to 0 just before it and read just after (in phase 9 on each rank);
+the kernels line reports each kernel's launches from the path that runs it
+(segment_reduce's: the kernel API's, phase 11's and phase 12's, also apart).
 
 Needs the repository's src/ beside it and one CUDA card; exits non-zero
 without them.
@@ -157,6 +181,10 @@ runs phase 10 alone (no kernel build, no result line).
 
 runs the build and phase 11 alone (no result line).
 
+    python3 chip_smoke.py --train-only
+
+runs the build and phase 12 alone (no result line).
+
     python3 chip_smoke.py --kernels-only [--src OTHER/src]
 
 runs phases 1-2 alone, on this checkout's kernels or another tree's (an
@@ -168,6 +196,7 @@ launch counts) is not made.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -2550,13 +2579,26 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def run_without_sync(fn):
-    """One forward with sync debugging at "error": any host sync inside
-    raises."""
+def time_steps(fn, repeats: int) -> list[float]:
+    """Device ms of each of `repeats` calls (CUDA events around each)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ms = []
+    for _ in range(repeats):
+        ev[0].record()
+        fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    return ms
+
+
+def run_without_sync(fn, grad: bool = False):
+    """One forward (or, with `grad`, one gradient or train step) with sync
+    debugging at "error": any host sync inside raises."""
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        with torch.inference_mode():
+        with contextlib.nullcontext() if grad else torch.inference_mode():
             out = fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
@@ -2592,19 +2634,20 @@ def gnn_dims_of(g, cfg) -> dict:
 
 
 class ModelPath:
-    """Phase 11's runs of the main path: each counted for segment_reduce
-    launches (set to 0 just before one forward with sync debugging at
-    "error", read just after), checked against the launches its
-    aggregations need, then timed and profiled (those calls do not count)."""
+    """Phases 11 and 12's runs of the main path: each counted for
+    segment_reduce launches (set to 0 just before one forward, gradient or
+    train step with sync debugging at "error", read just after), checked
+    against the launches its aggregations need, then timed and profiled
+    (those calls do not count)."""
 
     def __init__(self, kernels):
         self.kernels = kernels
         self.launches = 0
         self.rows = {}
 
-    def first(self, name: str, fn, want_launches: int):
+    def first(self, name: str, fn, want_launches: int, grad: bool = False):
         clear_launches(self.kernels)
-        out = run_without_sync(fn)
+        out = run_without_sync(fn, grad)
         got = self.kernels.LAUNCHES["segment_reduce"]
         clear_launches(self.kernels)
         check(got == want_launches,
@@ -2622,21 +2665,13 @@ class ModelPath:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ms = []
-        with torch.inference_mode():
-            for _ in range(repeats):
-                ev[0].record()
-                fn()
-                ev[1].record()
-                torch.cuda.synchronize()
-                ms.append(ev[0].elapsed_time(ev[1]))
-        peak = torch.cuda.max_memory_allocated()
 
         def once():
             with torch.inference_mode():
                 fn()
 
+        ms = time_steps(once, repeats)
+        peak = torch.cuda.max_memory_allocated()
         breakdown = device_breakdown(once, calls=profile_calls)
         clear_launches(self.kernels)
         n_launch, busy = card_work(breakdown)
@@ -2964,6 +2999,703 @@ def gnn_phase(dev) -> dict:
             "seconds": round(secs, 1)}
 
 
+# -- phase 12: training --------------------------------------------------------
+
+# card vs CPU port, one float32 train step: losses and grad norm within the
+# LM tolerance; each updated leaf within 1e-5 (an AdamW update is about lr
+# times the sign of m / sqrt(v): gradients that differ in their last bits
+# move a param by a few ulps of lr at most; the steps held to it run with
+# lr of 3e-5 or more, so a missing gradient shows); each gradient leaf
+# within a relative L2 error of 1e-4 (the CPU tests' bound) of its own
+# norm. A leaf whose exact gradient is zero (GAT's last a_dst when every
+# score of a segment lies on one side of the leaky ReLU) carries float32
+# rounding only: where the port's float64 gradient on the CPU puts a leaf
+# at most GRAD_ZERO_REL of the whole, it is held to 1e-4 of 1e-4 of the
+# whole gradient's norm instead
+TRAIN_PARAM_ATOL = 1e-5
+TRAIN_GRAD_REL_L2 = 1e-4
+GRAD_ZERO_REL, GRAD_FLOOR_REL = 1e-9, 1e-4
+GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ = 2, 4096  # train_4k's sequence, batch cut
+GEMMA_TRAIN_STEPS, GEMMA_CKPT_EVERY = 6, 3
+TRAIN_REPEATS = 3
+# (name, rows, width, segments, dtype): the GraphCast processor's sum at
+# minibatch_lg and DeepFM's one-row bags at train_batch (segments == rows)
+AUTOGRAD_CASES = (
+    ("graphcast processor f32", 297_472, 512, 42_496, torch.float32),
+    ("graphcast processor bf16", 297_472, 512, 42_496, torch.bfloat16),
+    ("deepfm train_batch bags", 65_536 * 39, 10, 65_536 * 39, torch.float32),
+)
+
+
+def check_close_trees(name: str, got, want, atol=None, rel=None,
+                      exact=None) -> float:
+    """Max over leaves of the abs error (atol) or the relative L2 error
+    (rel, of the leaf's own norm, or of the floor where `exact`, the
+    float64 gradient, is zero; see TRAIN_GRAD_REL_L2) of a card tree
+    against a CPU tree; fails beyond the bound."""
+    from repro_torch import tree as TT
+
+    worst = 0.0
+    total = sum(float(w.float().norm()) ** 2 for w in TT.leaves(want)) ** 0.5
+    zero = [False] * len(TT.leaves(want))
+    if exact is not None:
+        total64 = sum(float(e.norm()) ** 2 for e in TT.leaves(exact)) ** 0.5
+        zero = [float(e.norm()) <= GRAD_ZERO_REL * total64
+                for e in TT.leaves(exact)]
+    for path, g, w, z in zip(TT.paths(want), TT.leaves(got), TT.leaves(want),
+                             zero):
+        g = g.detach().cpu()
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{name} {path}: {g.dtype} {tuple(g.shape)} vs {w.dtype} "
+              f"{tuple(w.shape)}")
+        if rel is not None:
+            scale = GRAD_FLOOR_REL * total if z else float(w.float().norm())
+            err = float((g.float() - w.float()).norm()) / max(scale, 1e-30)
+            check(err <= rel, f"{name} {path}: relative L2 {err} > {rel}")
+        else:
+            err = float((g.float() - w.float()).abs().max()) if w.numel() else 0.0
+            check(err <= atol, f"{name} {path}: max abs err {err} > {atol}")
+        worst = max(worst, err)
+    return worst
+
+
+def float64_grad(loss_fn, params, *args, cfg):
+    """The port's gradient of `loss_fn(params, *args, cfg)` in float64 on
+    the CPU (a config's `compute_dtype` too): which leaves are exactly
+    zero."""
+    from repro_torch import tree as TT
+
+    def up(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu()
+            return x.double() if x.is_floating_point() else x
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(up(v) for v in x))
+        if isinstance(x, dict):
+            return {k: up(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(up(v) for v in x)
+        return x
+
+    if hasattr(cfg, "compute_dtype"):
+        cfg = dataclasses.replace(cfg, compute_dtype=torch.float64)
+    return TT.grad(loss_fn, up(params), *up(list(args)), cfg, has_aux=False)
+
+
+def check_finite_metrics(name: str, metrics: dict) -> dict:
+    from repro_torch.train.trainer import host_metrics
+
+    vals = host_metrics(metrics)
+    check(all(v == v and abs(v) != float("inf") for v in vals.values()),
+          f"{name}: a metric is not finite: {vals}")
+    return vals
+
+
+def kernel_autograd(dev) -> dict:
+    """Row 5 with a gradient at the GraphCast processor's shape (f32, bf16)
+    and at DeepFM's train_batch bags, with dropped ids: the forward bit-equal
+    to the kernel's without a gradient, the backward equal to the plain
+    version's backward (a gather: exact)."""
+    from repro_torch.kernels.segment_reduce import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(40)
+    out = {}
+    for name, n, d, s, dt in AUTOGRAD_CASES:
+        if s == n:  # one-row bags, ids 0..n-1, a few dropped at each end
+            ids = torch.arange(n, dtype=torch.int32, device=dev) - 3
+        else:
+            ids = torch.sort(torch.randint(-2, s + 2, (n,), generator=gen,
+                                           device=dev, dtype=torch.int32)).values
+        data = torch.randn((n, d), generator=gen, device=dev).to(dt)
+        g = torch.randn((s, d), generator=gen, device=dev).to(dt)
+        with torch.no_grad():
+            plain_fwd = ops.sorted_segment_sum(data, ids, s)
+        x = data.clone().requires_grad_(True)
+        y = data.clone().requires_grad_(True)
+        got = ops.sorted_segment_sum(x, ids, s)
+        check(got.requires_grad and torch.equal(got, plain_fwd),
+              f"{name}: the forward with a gradient differs from the kernel's")
+        got.backward(g)
+        ref.sorted_segment_sum(y, ids, s).backward(g)
+        torch.cuda.synchronize()
+        check(x.grad.dtype == dt and torch.equal(x.grad, y.grad),
+              f"{name}: the backward differs from the plain version's")
+        dropped = int(((ids < 0) | (ids >= s)).sum())
+        check(dropped > 0 and not bool(x.grad[(ids < 0) | (ids >= s)].any()),
+              f"{name}: dropped ids got a gradient")
+        out[name] = {"rows": n, "width": d, "segments": s, "dropped": dropped,
+                     "forward_bit_equal": True, "backward_equal": True}
+        del data, x, y, got, g, plain_fwd
+    torch.cuda.empty_cache()
+    log(f"train kernel autograd: forward bit-equal, backward equal: {out}")
+    return out
+
+
+def lm_train_reduced(dev) -> dict:
+    """One float32 train step of each reduced LM arch (and two
+    micro-batches), card against the CPU port, the same seeded weights."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.registry import archs_of
+    from repro_torch.launch.train import reduced_lm
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: a float32 comparison would mean nothing")
+    out = {}
+    for arch in archs_of("lm"):
+        vocab = 500 if arch == "granite-moe-3b-a800m" else 512
+        cfg = dataclasses.replace(reduced_lm(arch_config(arch), vocab=vocab),
+                                  dtype=torch.float32)
+        params = T.init_params(torch.Generator().manual_seed(5), cfg)
+        toks = torch.from_numpy(np.random.default_rng(len(arch)).integers(
+            0, vocab, (4, 65)).astype(np.int32))
+        batch = {"tokens": toks[:, :-1].contiguous(),
+                 "labels": toks[:, 1:].contiguous()}
+        for n_micro in (1, 2):
+            step = T.make_train_step(cfg, AdamWConfig(warmup_steps=10),
+                                     n_micro)
+            p_dev = tree_to(params, dev)
+            p1, s1, m1 = step(p_dev, adamw_init(p_dev),
+                              {k: v.to(dev) for k, v in batch.items()})
+            p0, s0, m0 = step(params, adamw_init(params), batch)
+            name = f"{arch} n_micro={n_micro}"
+            got = check_finite_metrics(name, m1)
+            want = {k: float(v) for k, v in m0.items()}
+            for k in ("loss", "aux", "grad_norm"):
+                check(abs(got[k] - want[k]) <= 1e-4 + 1e-4 * abs(want[k]),
+                      f"{name}: {k} {got[k]} on the card, {want[k]} on the CPU")
+            err = check_close_trees(name, p1, p0, atol=TRAIN_PARAM_ATOL)
+            err = max(err, check_close_trees(name, s1["m"], s0["m"],
+                                             atol=TRAIN_PARAM_ATOL))
+            out[name] = {"loss": got["loss"], "param_max_abs_err": err}
+    log(f"train lm reduced, card vs CPU (loss, max abs err): {out}")
+    return out
+
+
+def checkpoint_root() -> pathlib.Path:
+    """build/ under the checkout (gitignored): temporary checkpoint
+    directories go there and are removed when their run ends."""
+    d = ROOT / "build"
+    d.mkdir(exist_ok=True)
+    return d
+
+
+def lm_train_launcher(dev) -> dict:
+    """30 steps of `python -m repro_torch.launch.train --arch olmoe-1b-7b`
+    on the card (its main, in this process): the mean loss of the last 10
+    steps below the first 10's, as examples/train_lm.py asserts."""
+    import tempfile
+
+    from repro_torch.launch import train
+
+    with tempfile.TemporaryDirectory(dir=checkpoint_root()) as d:
+        t = time.perf_counter()
+        hist = train.main(["--arch", "olmoe-1b-7b", "--steps", "30",
+                           "--ckpt-dir", d, "--ckpt-every", "10",
+                           "--device", str(dev)])
+        secs = time.perf_counter() - t
+    check(len(hist) == 30 and not any("skipped" in h for h in hist),
+          "the launcher skipped a step or stopped early")
+    first = sum(h["loss"] for h in hist[:10]) / 10
+    last = sum(h["loss"] for h in hist[-10:]) / 10
+    check(last < first, f"the launcher's loss did not fall: first 10 "
+          f"{first:.4f}, last 10 {last:.4f}")
+    log(f"train launcher olmoe-1b-7b (reduced), 30 steps on the card in "
+        f"{secs:.1f} s: mean loss first 10 {first:.4f}, last 10 {last:.4f}")
+    return {"loss_first10": first, "loss_last10": last,
+            "seconds": round(secs, 2),
+            "step_ms_p50": round(statistics.median(h["dt"] for h in hist[1:])
+                                 * 1e3, 3)}
+
+
+def lm_train_restart(dev) -> dict:
+    """A crash after step 6 and a restart from step 4's checkpoint
+    (run_with_restarts) against the uninterrupted run, on the card: the
+    params and AdamW state bit for bit."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import tree as TT
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.train import reduced_lm
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import (Trainer, TrainSettings,
+                                           run_with_restarts)
+
+    cfg = dataclasses.replace(reduced_lm(arch_config("olmoe-1b-7b")),
+                              dtype=torch.float32)
+
+    def make(path, fail_at=-1):
+        params = T.init_params(torch.Generator(device=dev).manual_seed(6), cfg)
+        return Trainer(
+            T.make_train_step(cfg, AdamWConfig(lr=1e-3)), params,
+            TokenPipeline(vocab=cfg.vocab, batch=4, seq=32), str(path),
+            TrainSettings(total_steps=10, ckpt_every=4, log_every=0,
+                          fail_at_step=fail_at, skip_nonfinite_steps=False),
+            to_device=lambda b: {k: torch.from_numpy(v).to(dev)
+                                 for k, v in b.items()})
+
+    with tempfile.TemporaryDirectory(dir=checkpoint_root()) as d:
+        d = pathlib.Path(d)
+        straight = make(d / "a")
+        straight.run()
+        calls = []
+
+        def factory():
+            calls.append(1)
+            return make(d / "b", fail_at=6 if len(calls) == 1 else -1)
+
+        resumed = run_with_restarts(factory)
+    check(len(calls) == 2 and resumed.step == straight.step == 10,
+          "the restart did not resume and finish")
+    same = all(torch.equal(a, b) for a, b in zip(
+        TT.leaves({"p": resumed.params, "s": resumed.opt_state}),
+        TT.leaves({"p": straight.params, "s": straight.opt_state})))
+    check(same, "the restarted run differs from the uninterrupted run")
+    log("train restart on the card: crash after step 6, resumed from step 4, "
+        "params and AdamW state bit-equal to the uninterrupted run")
+    return {"restarts": len(calls) - 1, "bit_equal": same}
+
+
+def lm_train_cut_depth(dev) -> dict:
+    """gemma3-1b at full width with 2 layers, float32, one train step of
+    2 x 64 tokens: card against the CPU port."""
+    import numpy as np
+
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    cfg = arch_config("gemma3-1b", n_layers=2, dtype=torch.float32)
+    params = T.init_params(torch.Generator().manual_seed(7), cfg)
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab, (2, 65)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    step = T.make_train_step(cfg, AdamWConfig(warmup_steps=10))
+    p_dev = tree_to(params, dev)
+    p1, _, m1 = step(p_dev, adamw_init(p_dev),
+                     {k: v.to(dev) for k, v in batch.items()})
+    p1 = tree_to(p1, "cpu")
+    del p_dev
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    p0, _, m0 = step(params, adamw_init(params), batch)
+    cpu_s = time.perf_counter() - t
+    got = check_finite_metrics("gemma3-1b 2 layers", m1)
+    for k in ("loss", "grad_norm"):
+        check(abs(got[k] - float(m0[k])) <= 1e-4 + 1e-4 * abs(float(m0[k])),
+              f"gemma3-1b 2 layers: {k} {got[k]} on the card, "
+              f"{float(m0[k])} on the CPU")
+    err = check_close_trees("gemma3-1b 2 layers", p1, p0, atol=TRAIN_PARAM_ATOL)
+    log(f"train gemma3-1b 2 layers float32: loss {got['loss']:.5f} (CPU "
+        f"{float(m0['loss']):.5f}), params max abs err {err:.3g} card vs CPU "
+        f"(the CPU step {cpu_s:.1f} s)")
+    return {"loss": got["loss"], "param_max_abs_err": err}
+
+
+def train_row(name: str, step_ms: list, flops_by_rate: list, n_bytes: int,
+              breakdown, peak: int, opt_ms: list, items: int, unit: str,
+              **extra) -> dict:
+    """One training config's numbers: step ms (p50) beside its bound (the
+    larger of the operations, summed over (flops, rate) pairs, and the
+    bytes over HBM), items a second, peak memory, launches and card busy
+    ms a step, and the optimizer's ms apart."""
+    ops_ms = sum(f / r for f, r in flops_by_rate) * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    b_ms, b_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+    p50 = statistics.median(step_ms)
+    launches, busy = card_work(breakdown)
+    row = {"step_ms_p50": round(p50, 4), "step_ms_min": round(min(step_ms), 4),
+           "step_ms_max": round(max(step_ms), 4), "bound_ms": round(b_ms, 4),
+           "bound_by": b_by, f"{unit}_per_s": round(items * 1e3 / p50, 2),
+           "peak_bytes": peak, "device_launches": launches, "busy_ms": busy,
+           "optimizer_ms": round(statistics.median(opt_ms), 4), **extra}
+    if isinstance(breakdown, dict):
+        row["top_kernels"] = sorted(breakdown.items(),
+                                    key=lambda kv: -kv[1][0])[:5]
+    idle = (f"card idle {1 - busy / p50:.2f}" if isinstance(busy, float)
+            else "card idle not measured")
+    log(f"train {name}: step p50 {p50:.3f} ms (min {min(step_ms):.3f}, max "
+        f"{max(step_ms):.3f}) against a bound of {b_ms:.3f} ms ({b_by}); "
+        f"{row[f'{unit}_per_s']} {unit}/s; peak {peak} bytes; {launches} "
+        f"launches, {busy} ms busy a step ({idle}); optimizer "
+        f"{row['optimizer_ms']} ms; {extra}")
+    return row
+
+
+def optimizer_ms(grads, state, params, opt_cfg) -> list[float]:
+    from repro_torch.optim.adamw import adamw_update
+
+    return time_steps(lambda: adamw_update(opt_cfg, grads, state, params),
+                      TRAIN_REPEATS)
+
+
+def lm_train_full_width(dev) -> dict:
+    """gemma3-1b at full width and depth in bf16, remat on, AdamW
+    DEFAULT_OPT, batch 2 x 4096: 6 Trainer steps with an async checkpoint
+    every 3 (the host snapshot before save returns), every step finite,
+    the last checkpoint restored bit for bit; step ms beside its bound,
+    tokens/s, peak memory, launches and busy ms, the optimizer apart."""
+    import tempfile
+
+    from repro_torch import tree as TT
+    from repro_torch.configs.registry import DEFAULT_OPT
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.trainer import Trainer, TrainSettings
+
+    cfg = arch_config("gemma3-1b")
+    check(cfg.remat and cfg.dtype == torch.bfloat16, "gemma3-1b: remat, bf16")
+    b, s = GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    n_params, _ = T.count_params(cfg)
+    step_fn = T.make_train_step(cfg, DEFAULT_OPT)
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=b, seq=s)
+    writes, snapshots = [], []
+    with tempfile.TemporaryDirectory(dir=checkpoint_root()) as d:
+        tr = Trainer(step_fn, params, pipe, d, TrainSettings(
+            total_steps=GEMMA_TRAIN_STEPS, ckpt_every=GEMMA_CKPT_EVERY,
+            log_every=0, keep_k=1, async_ckpt=True,
+            skip_nonfinite_steps=False),
+            to_device=lambda bt: {k: torch.from_numpy(v).to(dev)
+                                  for k, v in bt.items()})
+        write, save = tr.mgr._write, tr.mgr.save
+
+        def timed_write(*a):
+            t = time.perf_counter()
+            write(*a)
+            writes.append(time.perf_counter() - t)
+
+        def timed_save(*a, **k):
+            tr.mgr.wait()  # the previous write, apart from the snapshot
+            t = time.perf_counter()
+            save(*a, **k)  # returns after the host snapshot
+            snapshots.append((time.perf_counter() - t) * 1e3)
+
+        tr.mgr._write, tr.mgr.save = timed_write, timed_save
+        del params
+        t = time.perf_counter()
+        hist = tr.run()  # waits for the last write
+        run_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        check(len(hist) == GEMMA_TRAIN_STEPS and all(
+            all(v == v and abs(v) != float("inf") for v in h.values())
+            for h in hist), "gemma3-1b: a train step was not finite")
+        check(tr.mgr.all_steps() == [GEMMA_TRAIN_STEPS],
+              f"gemma3-1b: checkpoints {tr.mgr.all_steps()}")
+        ckpt_bytes = sum(f.stat().st_size for f in pathlib.Path(d).rglob("*")
+                         if f.is_file())
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        back = tr.mgr.restore(GEMMA_TRAIN_STEPS,
+                              {"params": tr.params, "opt": tr.opt_state})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        same = all(torch.equal(x, y) for x, y in zip(
+            TT.leaves(back), TT.leaves({"params": tr.params,
+                                        "opt": tr.opt_state})))
+        check(same, "gemma3-1b: the restored checkpoint differs")
+        check(tr.mgr.meta(GEMMA_TRAIN_STEPS)["pipeline"]["step"]
+              == GEMMA_TRAIN_STEPS, "gemma3-1b: pipeline state not saved")
+        del back
+    torch.cuda.empty_cache()
+    log(f"train gemma3-1b full width: {GEMMA_TRAIN_STEPS} Trainer steps in "
+        f"{run_s:.1f} s, losses {[round(h['loss'], 4) for h in hist]}; "
+        f"checkpoint {ckpt_bytes} bytes: host snapshot ms {snapshots}, "
+        f"write s {[round(w, 2) for w in writes]}, restore {restore_s:.2f} s, "
+        f"bit-equal")
+
+    # timed steps on one batch, then the gradient alone, then the optimizer
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(0).items()}
+    params, state = tr.params, tr.opt_state
+    del tr
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_steps(lambda: step_fn(params, state, batch), TRAIN_REPEATS)
+    step_peak = torch.cuda.max_memory_allocated()
+    breakdown = device_breakdown(lambda: step_fn(params, state, batch), calls=1)
+    grads, _ = TT.grad(T.make_loss_fn(cfg), params, batch["tokens"],
+                       batch["labels"])
+    opt = optimizer_ms(grads, state, params, DEFAULT_OPT)
+    del grads
+    # bound: 6 N per token in bf16 GEMMs, plus the float32 attention the
+    # function needs: 4 B H Dh flops (scores and values) for each pair of
+    # a query and a key it may see, causal on global layers and within the
+    # window on local ones, run 4 times (forward, the remat recompute, the
+    # backward's two). Beside it, the attention as the port computes it
+    # (every KV chunk of every layer, masked pairs included: S^2 a layer)
+    # and the reference's model_flops, which counts one layer's causal
+    # attention
+    tokens = b * s
+    gemm = 6.0 * n_params * tokens
+    w = min(cfg.sliding_window or s, s)
+    pairs = sum(s * (s + 1) // 2 if is_global
+                else w * (w + 1) // 2 + (s - w) * w
+                for is_global in cfg.is_global_layers())
+    per_pair = 4.0 * b * cfg.n_heads * cfg.d_head * 4
+    attn = per_pair * pairs
+    attn_computed = per_pair * s * s * cfg.n_layers
+    row = train_row(
+        "gemma3-1b full width", ms,
+        [(gemm, BF16_FLOPS_PER_S), (attn, F32_FLOPS_PER_S)],
+        30 * n_params, breakdown, max(peak, step_peak), opt, tokens, "tokens",
+        batch=b, seq=s, params=n_params, trainer_peak_bytes=peak,
+        losses=[h["loss"] for h in hist],
+        trainer_step_s=[round(h["dt"], 4) for h in hist],
+        model_flops_bound_ms=round(
+            T.model_flops(cfg, "train", b, s) / BF16_FLOPS_PER_S * 1e3, 4),
+        gemm_bound_ms=round(gemm / BF16_FLOPS_PER_S * 1e3, 4),
+        attention_bound_ms=round(attn / F32_FLOPS_PER_S * 1e3, 4),
+        attention_as_computed_ms=round(attn_computed / F32_FLOPS_PER_S * 1e3, 4),
+        bound_as_computed_ms=round((gemm / BF16_FLOPS_PER_S + attn_computed
+                                    / F32_FLOPS_PER_S) * 1e3, 4),
+        checkpoint_bytes=ckpt_bytes, checkpoint_snapshot_ms=snapshots,
+        checkpoint_write_s=writes, checkpoint_restore_s=round(restore_s, 3),
+        checkpoint_bit_equal=same, trainer_run_s=round(run_s, 2))
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_step_launches(arch: str, cfg, g) -> int:
+    """The sorted segment sums one train step makes: the forward's
+    (`segment_launches_per_forward`), and again every rematerialized
+    block's in the backward (all of GraphCast's and MeshGraphNet's
+    aggregations lie in blocks); the backward of a sum is a gather."""
+    fwd = segment_launches_per_forward(arch, cfg, g)
+    return fwd * (2 if getattr(cfg, "remat", False) else 1)
+
+
+def gnn_train_small(dev, path: ModelPath) -> dict:
+    """Each GNN arch at its reduced config (MeshGraphNet and GraphCast also
+    with remat, GraphCast also streamed) and DeepFM's small config, float32:
+    every gradient leaf card against the CPU port (relative L2 1e-4: the
+    params upstream of an aggregation get theirs through the kernel's
+    backward), then one registry train step with a warmup of 2 (lr 1.5e-4,
+    so that an update is well above the params' 1e-5)."""
+    from repro_torch import tree as TT
+    from repro_torch.configs.registry import (
+        DEFAULT_OPT, _gnn_module, archs_of, deepfm_train_step, gnn_train_step)
+    from repro_torch.data.graphs import make_full_graph, to_device
+    from repro_torch.data.recsys import CTRPipeline
+    from repro_torch.launch.train import reduced_gnn
+    from repro_torch.models.recsys import deepfm as D
+    from repro_torch.optim.adamw import adamw_init
+
+    def reduced(arch, **changes):
+        return dataclasses.replace(reduced_gnn(arch, arch_config(arch)),
+                                   **changes)
+
+    opt = dataclasses.replace(DEFAULT_OPT, warmup_steps=2)
+
+    d_feat = {"schnet": 1, "graphcast": 6, "gat-cora": 12, "meshgraphnet": 8}
+    cases = [(arch, reduced(arch),
+              make_full_graph(arch, 40, 90, 96, d_feat[arch], 3))
+             for arch in archs_of("gnn")]
+    cases += [("meshgraphnet", reduced("meshgraphnet", remat=True),
+               make_full_graph("meshgraphnet", 40, 90, 96, 8, 3)),
+              ("graphcast", reduced("graphcast", remat=True,
+                                    edge_stream_chunks=4),
+               make_full_graph("graphcast", 300, 2000, 2048, 6, 3, seed=5))]
+    out = {}
+    for i, (arch, cfg, g_np) in enumerate(cases):
+        mod = _gnn_module(arch)
+        params = mod.init_params(torch.Generator().manual_seed(50 + i), cfg)
+        g_cpu, g_dev = to_device(g_np, "cpu"), to_device(g_np, dev)
+        p_dev = tree_to(params, dev)
+        name = f"{arch} reduced #{i}" + (" remat" if getattr(cfg, "remat",
+                                                             False) else "")
+        got = path.first(name, lambda: TT.grad(mod.loss_fn, p_dev, g_dev, cfg,
+                                               has_aux=False),
+                         train_step_launches(arch, cfg, g_dev), grad=True)
+        want = TT.grad(mod.loss_fn, params, g_cpu, cfg, has_aux=False)
+        g_err = check_close_trees(
+            name, got, want, rel=TRAIN_GRAD_REL_L2,
+            exact=float64_grad(mod.loss_fn, params, g_cpu, cfg=cfg))
+        step = gnn_train_step(mod, cfg, opt)
+        p1, _, m1 = step(p_dev, adamw_init(p_dev), g_dev)
+        p0, _, _ = step(params, adamw_init(params), g_cpu)
+        check_finite_metrics(name, m1)
+        out[name] = {"grad_rel_l2": g_err,
+                     "param_max_abs_err": check_close_trees(
+                         name, p1, p0, atol=TRAIN_PARAM_ATOL)}
+    cfg = D.DeepFMConfig(n_sparse=39, embed_dim=10, mlp_dims=(40, 40, 40),
+                         rows_per_field=300)
+    params = D.init_params(torch.Generator().manual_seed(59), cfg)
+    p_dev = tree_to(params, dev)
+    bt = {k: torch.from_numpy(v) for k, v in
+          CTRPipeline(cfg.n_sparse, cfg.rows_per_field, 256).batch_at(0).items()}
+    bt_dev = {k: v.to(dev) for k, v in bt.items()}
+    got = path.first("deepfm reduced", lambda: TT.grad(
+        D.bce_loss, p_dev, bt_dev["ids"], bt_dev["labels"], cfg,
+        has_aux=False), 2, grad=True)
+    want = TT.grad(D.bce_loss, params, bt["ids"], bt["labels"], cfg,
+                   has_aux=False)
+    check(bool(want["table"].any()), "deepfm: no table gradient")
+    g_err = check_close_trees(
+        "deepfm reduced", got, want, rel=TRAIN_GRAD_REL_L2,
+        exact=float64_grad(D.bce_loss, params, bt["ids"], bt["labels"],
+                           cfg=cfg))
+    step = deepfm_train_step(cfg, opt)
+    p1, _, m1 = step(p_dev, adamw_init(p_dev), bt_dev)
+    p0, _, _ = step(params, adamw_init(params), bt)
+    check_finite_metrics("deepfm reduced", m1)
+    out["deepfm reduced"] = {"grad_rel_l2": g_err,
+                             "param_max_abs_err": check_close_trees(
+                                 "deepfm reduced", p1, p0,
+                                 atol=TRAIN_PARAM_ATOL)}
+    log(f"train gnn / deepfm reduced, card vs CPU: {out}")
+    return out
+
+
+def gnn_train_timed(dev, path: ModelPath) -> dict:
+    """Train steps at published configs and sizes (registry steps,
+    DEFAULT_OPT): gat-cora on full_graph_sm, schnet on molecule,
+    MeshGraphNet and GraphCast (remat on, float32) at minibatch_lg's device
+    dims, DeepFM at train_batch with its full table. Each step's launches
+    counted, metrics and new params finite; then timed."""
+    from repro_torch import tree as TT
+    from repro_torch.configs.registry import (
+        DEFAULT_OPT, GNN_SHAPES, RECSYS_SHAPES, _gnn_cfg_for_shape, _gnn_dims,
+        _gnn_model_flops, _gnn_module, deepfm_train_step, gnn_train_step)
+    from repro_torch.data.graphs import (
+        make_full_graph, make_molecule_batch, to_device)
+    from repro_torch.data.recsys import CTRPipeline
+    from repro_torch.models.recsys import deepfm as D
+    from repro_torch.optim.adamw import adamw_init
+
+    sm, mol, lg = (GNN_SHAPES[k] for k in ("full_graph_sm", "molecule",
+                                           "minibatch_lg"))
+    dims_sm, dims_lg = _gnn_dims("gat-cora", sm, 1), _gnn_dims("graphcast", lg, 1)
+    runs = [
+        ("gat-cora full_graph_sm", "gat-cora", sm, lambda: make_full_graph(
+            "gat-cora", sm["n_nodes"], sm["n_edges"], dims_sm["e"],
+            sm["d_feat"], sm["n_classes"]), {}),
+        ("schnet molecule", "schnet", mol, lambda: make_molecule_batch(
+            "schnet", mol["n_nodes"], mol["n_edges"], mol["batch"],
+            mol["n_classes"]), {}),
+        ("meshgraphnet minibatch_lg", "meshgraphnet", lg,
+         lambda: make_full_graph("meshgraphnet", dims_lg["n"], dims_lg["e"],
+                                 dims_lg["e"], lg["d_feat"], lg["n_classes"]),
+         {}),
+        ("graphcast minibatch_lg remat", "graphcast", lg,
+         lambda: make_full_graph("graphcast", dims_lg["n"], dims_lg["e"],
+                                 dims_lg["e"], arch_config("graphcast").n_vars,
+                                 lg["n_classes"]), {"remat": True}),
+    ]
+    out = {}
+    for i, (name, arch, sh, make, changes) in enumerate(runs):
+        mod = _gnn_module(arch)
+        cfg = dataclasses.replace(_gnn_cfg_for_shape(
+            arch, arch_config(arch), _gnn_dims(arch, sh, 1)), **changes)
+        g_np = make()
+        g_dev = to_device(g_np, dev)
+        params = mod.init_params(torch.Generator(device=dev).manual_seed(60 + i),
+                                 cfg)
+        state = adamw_init(params)
+        step = gnn_train_step(mod, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n_seg = train_step_launches(arch, cfg, g_dev)
+        p1, s1, m1 = path.first(name, lambda: step(params, state, g_dev), n_seg,
+                                grad=True)
+        peak = torch.cuda.max_memory_allocated()
+        vals = check_finite_metrics(name, m1)
+        check(all(bool(torch.isfinite(p).all()) for p in TT.leaves(p1)),
+              f"{name}: a param is not finite after the step")
+        del p1, s1
+        ms = time_steps(lambda: step(params, state, g_dev), TRAIN_REPEATS)
+        breakdown = device_breakdown(lambda: step(params, state, g_dev),
+                                     calls=1)
+        grads = TT.grad(mod.loss_fn, params, g_dev, cfg, has_aux=False)
+        opt = optimizer_ms(grads, state, params, DEFAULT_OPT)
+        del grads
+        dims = gnn_dims_of(g_np, cfg)
+        flops = _gnn_model_flops(arch, cfg, dims)  # 3 forwards
+        n_p = sum(p.numel() for p in TT.leaves(params))
+        n_bytes = (tree_bytes(list(g_dev[:-1])) + tree_bytes(g_dev.extras)
+                   + 32 * n_p)
+        seg = ([v for k, v in breakdown.items() if k.startswith(SEGMENT_KERNELS)]
+               if isinstance(breakdown, dict) else None)
+        out[name] = train_row(
+            name, ms, [(flops, F32_FLOPS_PER_S)], n_bytes, breakdown, peak,
+            opt, 1, "steps", grad_norm=vals["grad_norm"], params=n_p,
+            segment_reduce_launches=n_seg,
+            segment_reduce_ms=(round(sum(t for t, _ in seg), 4)
+                               if seg is not None else "not measured"),
+            recompute_flops=(flops / 3 if getattr(cfg, "remat", False) else 0))
+        del params, state, g_dev
+        torch.cuda.empty_cache()
+
+    cfg = arch_config("deepfm")
+    b = RECSYS_SHAPES["train_batch"]["batch"]
+    t = time.perf_counter()
+    params = tree_to(D.init_params(torch.Generator().manual_seed(70), cfg), dev)
+    torch.cuda.synchronize()
+    log(f"deepfm train: {cfg.total_rows} rows drawn on the CPU and copied in "
+        f"{time.perf_counter() - t:.2f} s")
+    state = adamw_init(params)
+    bt = {k: torch.from_numpy(v).to(dev) for k, v in
+          CTRPipeline(cfg.n_sparse, cfg.rows_per_field, b).batch_at(0).items()}
+    step = deepfm_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p1, s1, m1 = path.first("deepfm train_batch", lambda: step(params, state, bt),
+                            2, grad=True)
+    peak = torch.cuda.max_memory_allocated()
+    vals = check_finite_metrics("deepfm train_batch", m1)
+    check(all(bool(torch.isfinite(p).all()) for p in TT.leaves(p1)),
+          "deepfm train_batch: a param is not finite after the step")
+    del p1, s1
+    ms = time_steps(lambda: step(params, state, bt), TRAIN_REPEATS)
+    breakdown = device_breakdown(lambda: step(params, state, bt), calls=1)
+    grads = TT.grad(D.bce_loss, params, bt["ids"], bt["labels"], cfg,
+                    has_aux=False)
+    opt = optimizer_ms(grads, state, params, DEFAULT_OPT)
+    del grads
+    mlp_flops = 2 * sum(a * c for a, c in zip(
+        (cfg.n_sparse * cfg.embed_dim,) + cfg.mlp_dims, cfg.mlp_dims + (1,)))
+    fm_flops = 4 * cfg.n_sparse * cfg.embed_dim
+    n_p = sum(p.numel() for p in TT.leaves(params))
+    out["deepfm train_batch"] = train_row(
+        "deepfm train_batch", ms, [(3 * b * (mlp_flops + fm_flops),
+                                    F32_FLOPS_PER_S)],
+        32 * n_p + bt["ids"].numel() * 4 + b * 4, breakdown, peak, opt, b,
+        "examples", grad_norm=vals["grad_norm"], params=n_p,
+        segment_reduce_launches=2)
+    del params, state, bt
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(dev) -> dict:
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    out = {"kernel_autograd": kernel_autograd(dev),
+           "lm_reduced": lm_train_reduced(dev),
+           "lm_launcher": lm_train_launcher(dev),
+           "lm_restart": lm_train_restart(dev),
+           "gemma3_1b_2l_f32": lm_train_cut_depth(dev)}
+    out["gemma3_1b"] = lm_train_full_width(dev)
+    path = ModelPath(kernels)
+    out["gnn_recsys_reduced"] = gnn_train_small(dev, path)
+    out["gnn_recsys"] = gnn_train_timed(dev, path)
+    check(path.launches > 0, "segment_reduce was not launched by a train step")
+    secs = time.perf_counter() - t0
+    log(f"phase 12 (training): {secs:.1f} s; segment_reduce launched "
+        f"{path.launches} times by the GNN and DeepFM train steps")
+    out.update(segment_reduce_launches=path.launches, seconds=round(secs, 1))
+    return out
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -2981,6 +3713,9 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--gnn-only", action="store_true",
                     help="the build and phase 11 (GNN and recsys forward) "
                     "alone; no result line")
+    ap.add_argument("--train-only", action="store_true",
+                    help="the build and phase 12 (training) alone; no "
+                    "result line")
     ap.add_argument("--nccl-only", action="store_true",
                     help="phase 9's NCCL run alone (on a host of several "
                     "cards: one rank per card at scale 1000) with the "
@@ -3025,6 +3760,12 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"gnn": out}), flush=True)
         print(card, flush=True)
         return 0
+    if args.train_only:
+        out = train_phase(dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"train": out}), flush=True)
+        print(card, flush=True)
+        return 0
     if args.nccl_only:
         out = nccl_only(dev)
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -3047,19 +3788,24 @@ def main(argv: list[str]) -> int:
     ranks = ranks_phase(dev, full, sharded)
     lm = lm_phase(dev)
     gnn = gnn_phase(dev)
+    train = train_phase(dev)
     for name, row in rows.items():
         row["launches"] = (full["launches"] | api_launches).get(name, 0)
         check(row["launches"] > 0, f"kernel {name} was not launched")
     seg = rows["segment_reduce"]
-    seg["launches_by_path"] = {"kernel_api": seg["launches"],
-                               "gnn_recsys_forward": gnn["segment_reduce_launches"]}
-    seg["launches"] += gnn["segment_reduce_launches"]
+    seg["launches_by_path"] = {
+        "kernel_api": seg["launches"],
+        "gnn_recsys_forward": gnn["segment_reduce_launches"],
+        "gnn_recsys_train": train["segment_reduce_launches"]}
+    seg["launches"] += (gnn["segment_reduce_launches"]
+                        + train["segment_reduce_launches"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     full = {k: full[k] for k in ("launches", "peak_bytes", "queries")}
     del sharded["store"]
     print(json.dumps({"full_scale": full, "matrix": matrix,
                       "serving": serving, "sharded": sharded,
-                      "ranks": ranks, "lm": lm, "gnn": gnn}), flush=True)
+                      "ranks": ranks, "lm": lm, "gnn": gnn, "train": train}),
+          flush=True)
     print(json.dumps({"stacked": stacked}), flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(card, flush=True)

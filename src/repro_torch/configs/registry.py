@@ -1,14 +1,18 @@
 """Arch × shape registry: arch id -> config module (each holds `CONFIG`
-and `FAMILY`), the input shapes of each family, and the GNN shape
-bindings (`_gnn_dims`, `_gnn_cfg_for_shape`, `_gnn_model_flops`) that
-size a (gnn arch, shape) cell. `build_cell` and its per-family cells are
-not ported yet."""
+and `FAMILY`), the input shapes of each family, the GNN shape bindings
+(`_gnn_dims`, `_gnn_cfg_for_shape`, `_gnn_model_flops`) that size a (gnn
+arch, shape) cell, `DEFAULT_OPT`, and the GNN and DeepFM train steps of
+the reference's cells (`gnn_train_step`, `deepfm_train_step`).
+`build_cell` and its per-family cells are not ported yet."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
 import torch
+
+from repro_torch import tree as TT
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
 ARCHS: dict[str, str] = {
     # arch id -> config module
@@ -66,6 +70,9 @@ def archs_of(family: str) -> list[str]:
 
 def lm_layer_count(arch: str) -> int:
     return importlib.import_module(ARCHS[arch]).CONFIG.n_layers
+
+
+DEFAULT_OPT = AdamWConfig()
 
 
 def _all_axes(multi_pod: bool) -> tuple[str, ...]:
@@ -164,3 +171,34 @@ def _gnn_model_flops(arch: str, cfg, dims: dict) -> float:
                + cfg.n_layers * blk(em, nm) + blk(e, n)
                + 2 * n * d * cfg.n_vars)
     return 3.0 * fwd  # train = fwd + bwd(2x)
+
+
+# ---------------------------------------------------------------------------
+# Train steps (the reference's GNN and DeepFM cells)
+# ---------------------------------------------------------------------------
+
+def gnn_train_step(mod, cfg, opt_cfg: AdamWConfig = DEFAULT_OPT):
+    """train_step(params, opt_state, graph) -> (params, opt_state, metrics):
+    the gradient of `mod.loss_fn` over every param, then AdamW (metrics:
+    grad_norm, lr)."""
+    def train_step(params, opt_state, graph):
+        grads = TT.grad(mod.loss_fn, params, graph, cfg, has_aux=False)
+        return adamw_update(opt_cfg, grads, opt_state, params)
+
+    return train_step
+
+
+def deepfm_train_step(cfg, opt_cfg: AdamWConfig = DEFAULT_OPT,
+                      lookup_fn=None):
+    """train_step(params, opt_state, batch) -> (params, opt_state, metrics)
+    for DeepFM: the gradient of `bce_loss` on batch {"ids" (B, F) int32,
+    "labels" (B,) float32} (the tables get dense gradients, as
+    `jax.grad` gives), then AdamW."""
+    from repro_torch.models.recsys import deepfm as D
+
+    def train_step(params, opt_state, batch):
+        grads = TT.grad(D.bce_loss, params, batch["ids"], batch["labels"],
+                        cfg, lookup_fn, has_aux=False)
+        return adamw_update(opt_cfg, grads, opt_state, params)
+
+    return train_step

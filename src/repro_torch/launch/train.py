@@ -1,11 +1,21 @@
-"""Training launcher (to come): for now only `reduced_lm` and
-`reduced_gnn`, the cut-down configs that `serve --mode lm`, the tests and
-the smoke run. The launcher's `main`
-(registry config → jitted step → Trainer with checkpoints) comes with the
-training slice of the port."""
+"""Training launcher: `python -m repro_torch.launch.train --arch <id> [...]`.
+
+Runs a REDUCED config of the selected LM architecture (`reduced_lm`) on
+the card, or on the CPU with `--device cpu`: registry config → seeded
+weights → train step → Trainer with checkpoints and restart, the same
+flags and settings as `repro.launch.train` (AdamW lr 3e-4, warmup 10).
+A rerun with the same `--ckpt-dir` resumes from its latest checkpoint.
+
+Also holds `reduced_lm` and `reduced_gnn`, the cut-down configs that
+`serve --mode lm`, the tests and the smoke run.
+"""
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import importlib
+import os
+import tempfile
 
 
 def reduced_lm(cfg, vocab=512):
@@ -29,3 +39,52 @@ def reduced_gnn(arch: str, cfg):
                "gat-cora": dict(d_in=12, n_classes=3),
                "meshgraphnet": dict(n_layers=2, d_hidden=16, d_node_in=8)}
     return dataclasses.replace(cfg, **changes[arch])
+
+
+def main(argv: list[str] | None = None) -> list[dict]:
+    """Train, print the final loss, and return the Trainer's history (one
+    dict of metrics a step)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmoe-1b-7b")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--ckpt-dir",
+                    default=os.path.join(tempfile.gettempdir(),
+                                         "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default: a card) or cpu")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from repro_torch import resolve_device
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainSettings
+
+    dev = resolve_device(args.device)
+    mod = importlib.import_module(ARCHS[args.arch])
+    assert mod.FAMILY == "lm", "train.py drives LM archs; see examples/"
+    cfg = reduced_lm(mod.CONFIG)
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=args.steps)
+    step_fn = T.make_train_step(cfg, opt_cfg)
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=args.batch, seq=args.seq)
+    tr = Trainer(
+        step_fn, params, pipe, args.ckpt_dir,
+        TrainSettings(total_steps=args.steps, ckpt_every=args.ckpt_every),
+        to_device=lambda b: {k: torch.from_numpy(v).to(dev)
+                             for k, v in b.items()},
+    )
+    tr.resume_if_possible()
+    hist = tr.run()
+    print(f"final loss: {hist[-1]['loss']:.4f} (step {hist[-1]['step']})")
+    return hist
+
+
+if __name__ == "__main__":
+    main()

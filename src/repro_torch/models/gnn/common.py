@@ -17,6 +17,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.segments import (
     segment_softmax, segment_sum, sorted_segment_sum,
@@ -117,6 +118,22 @@ def aggregate_softmax(scores: torch.Tensor, values: torch.Tensor,
     a = segment_softmax(scores, dst, n_nodes)
     a = torch.where(edge_mask[:, None], a, 0.0)
     return sorted_segment_sum(values * a[:, :, None], dst, n_nodes)
+
+
+def remat(fn, on: bool):
+    """`fn` rematerialized in the backward when `on` (the reference's
+    `jax.checkpoint`): a forward that records a gradient keeps only the
+    call's inputs and runs `fn` again in the backward, sorted segment sums
+    included. Without a gradient (serving) `fn` runs as it is."""
+    if not on:
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return run
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ class GraphCastConfig:
     mesh_refinement: int = 6  # recorded; mesh size derives from the shape
     # axes the node dim shards over on large graphs (several devices only)
     node_spec: tuple[str, ...] = ()
-    remat: bool = False  # rematerialization: no effect on a forward
+    remat: bool = False  # rematerialize each block in a training backward
     compute_dtype: object = torch.float32  # bf16 halves node/edge traffic
     shuffle_gather: bool = False  # MapSQ shuffle gather/scatter (several devices)
     # stream the g2m/m2g edge sets in ~this many chunks (their edge
@@ -129,35 +129,35 @@ def apply(params: dict, g: C.GraphBatch, cfg: GraphCastConfig) -> torch.Tensor:
     dt = cfg.compute_dtype
     xg = C.layer_norm(C.mlp(params["enc_grid"], g.node_feat.to(dt))).to(dt)
     xm = params["mesh_init"].to(dt).expand(n_mesh, cfg.d_hidden)
+    blk = C.remat(_bipartite_block, cfg.remat)
+    sblk = C.remat(_bipartite_block_streamed, cfg.remat)
     stream = cfg.edge_stream_chunks
     if stream:  # one-shot edge sets never materialize at O(E·d)
-        xm = _bipartite_block_streamed(
-            params["g2m"], params["enc_g2m_edge"], ex["g2m_feat"], xg, xm,
-            g.src, g.dst, g.edge_mask, n_mesh, stream)
+        xm = sblk(params["g2m"], params["enc_g2m_edge"], ex["g2m_feat"], xg,
+                  xm, g.src, g.dst, g.edge_mask, n_mesh, stream)
     else:
         # encoder: grid -> mesh (edges of the GraphBatch ARE the g2m set)
         e_g2m = C.layer_norm(C.mlp(params["enc_g2m_edge"],
                                    ex["g2m_feat"].to(dt))).to(dt)
-        _, xm = _bipartite_block(params["g2m"], e_g2m, xg, xm, g.src,
-                                 g.dst, g.edge_mask, n_mesh)
+        _, xm = blk(params["g2m"], e_g2m, xg, xm, g.src, g.dst, g.edge_mask,
+                    n_mesh)
     # processor: 16 interaction layers on the mesh graph (edge features are
     # carried across layers, so these stay resident — mesh edges are small)
     e_m = C.layer_norm(C.mlp(params["enc_mesh_edge"],
                              ex["mesh_edge_feat"].to(dt))).to(dt)
     for p in params["processor"]:
-        e_m, xm = _bipartite_block(p, e_m, xm, xm, ex["mesh_src"],
-                                   ex["mesh_dst"], ex["mesh_mask"], n_mesh)
+        e_m, xm = blk(p, e_m, xm, xm, ex["mesh_src"], ex["mesh_dst"],
+                      ex["mesh_mask"], n_mesh)
     # decoder: mesh -> grid
     if stream:
-        xg = _bipartite_block_streamed(
-            params["m2g"], params["enc_m2g_edge"], ex["m2g_feat"], xm, xg,
-            ex["m2g_src"], ex["m2g_dst"], ex["m2g_mask"], n_grid, stream)
+        xg = sblk(params["m2g"], params["enc_m2g_edge"], ex["m2g_feat"], xm,
+                  xg, ex["m2g_src"], ex["m2g_dst"], ex["m2g_mask"], n_grid,
+                  stream)
     else:
         e_m2g = C.layer_norm(C.mlp(params["enc_m2g_edge"],
                                    ex["m2g_feat"].to(dt))).to(dt)
-        _, xg = _bipartite_block(params["m2g"], e_m2g, xm, xg,
-                                 ex["m2g_src"], ex["m2g_dst"],
-                                 ex["m2g_mask"], n_grid)
+        _, xg = blk(params["m2g"], e_m2g, xm, xg, ex["m2g_src"],
+                    ex["m2g_dst"], ex["m2g_mask"], n_grid)
     out = C.mlp(params["dec_grid"], xg).float()
     return torch.where(g.node_mask[:, None], out, 0.0)
 

@@ -21,7 +21,7 @@ class MGNConfig:
     d_out: int = 3
     # axes the node dim shards over on large graphs (several devices only)
     node_spec: tuple[str, ...] = ()
-    remat: bool = False  # rematerialization: no effect on a forward
+    remat: bool = False  # rematerialize each block in a training backward
     compute_dtype: object = None  # a torch dtype (bf16 on large graphs)
     shuffle_gather: bool = False  # MapSQ shuffle gather/scatter (several devices)
 
@@ -58,21 +58,28 @@ def params_from_numpy(tree: dict, cfg: MGNConfig, device=None) -> dict:
                              resolve_device(device))
 
 
+def _block(p: dict, x: torch.Tensor, e: torch.Tensor, g: C.GraphBatch):
+    """One residual edge / node update. Returns (x, e)."""
+    dt = x.dtype
+    xs = C.take_nodes(x, g.src, g.edge_mask)
+    xd = C.take_nodes(x, g.dst, g.edge_mask)
+    e_in = torch.cat([e, xs, xd], dim=-1)
+    e = e + C.layer_norm(C.mlp(p["edge"], e_in)).to(dt)
+    agg = C.aggregate_nodes(e, g.dst, g.n_nodes, g.edge_mask)
+    x = x + C.layer_norm(
+        C.mlp(p["node"], torch.cat([x, agg], dim=-1))).to(dt)
+    return x, e
+
+
 def apply(params: dict, g: C.GraphBatch, cfg: MGNConfig) -> torch.Tensor:
     C.check_one_device(cfg.node_spec, cfg.shuffle_gather)
-    n = g.n_nodes
     dt = cfg.compute_dtype or g.node_feat.dtype
     x = C.layer_norm(C.mlp(params["enc_node"], g.node_feat.to(dt))).to(dt)
     e = C.layer_norm(C.mlp(params["enc_edge"],
                            g.extras["edge_feat"].to(dt))).to(dt)
+    blk = C.remat(_block, cfg.remat)
     for p in params["blocks"]:
-        xs = C.take_nodes(x, g.src, g.edge_mask)
-        xd = C.take_nodes(x, g.dst, g.edge_mask)
-        e_in = torch.cat([e, xs, xd], dim=-1)
-        e = e + C.layer_norm(C.mlp(p["edge"], e_in)).to(dt)
-        agg = C.aggregate_nodes(e, g.dst, n, g.edge_mask)
-        x = x + C.layer_norm(
-            C.mlp(p["node"], torch.cat([x, agg], dim=-1))).to(dt)
+        x, e = blk(p, x, e, g)
     out = C.mlp(params["dec"], x)
     return torch.where(g.node_mask[:, None], out, 0.0)
 

@@ -1,11 +1,20 @@
-"""LM transformer family, serving half: one config covers the five LM archs
+"""LM transformer family: one config covers the five LM archs
 (olmoe-1b-7b, granite-moe-3b-a800m, qwen2.5-32b, gemma3-1b, deepseek-67b).
 
 Structure, as in `repro.models.transformer`: weights are stacked per layer
 (a leading layer axis on every block leaf) and the layer stack is a loop
-over layer index into them; attention is chunked online-softmax (never
-materializes S×S); MoE layers use the MapSQ sort-based dispatch
-(models/moe.py) at prefill and the one-hot einsum at decode.
+over per-layer views of them (one `unbind` per leaf and call, so a
+backward stacks each leaf's gradient once); attention is chunked
+online-softmax (never materializes S×S); MoE layers use the MapSQ
+sort-based dispatch (models/moe.py) at train / prefill and the one-hot
+einsum at decode. With `cfg.remat` a training forward rematerializes each
+block in the backward (`torch.utils.checkpoint`, as the reference's
+`jax.checkpoint` of the scanned block).
+
+Training: `ce_loss` / `chunked_ce_loss`, `make_loss_fn` and
+`make_train_step` (gradients by `torch.autograd.grad` over the param
+leaves, optional micro-batch accumulation in float32, then AdamW). One
+device: no mesh, no sharding constraints.
 
 Serving: `make_prefill_step` runs the prompt once and exports the post-RoPE
 K/V of every layer; `make_serve_step` decodes one token per sequence
@@ -23,9 +32,12 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as TT
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,15 +64,17 @@ class TransformerConfig:
     rope_theta_local: float = 0.0  # gemma3 local layers (0 -> same)
     embed_scale: bool = False  # gemma: x *= sqrt(d_model)
     tied_embeddings: bool = False
-    # distribution and training: kept so the arch configs copy over
-    # unchanged; serving reads none of them (no mesh, no rematerialization,
-    # and the layer loop is plain Python, so there is no scan to unroll)
+    # distribution: kept so the arch configs copy over unchanged; one
+    # device reads none of them (no mesh, and the layer loop is plain
+    # Python, so there is no scan to unroll)
     fsdp: bool = False
     seq_shard: bool = True
-    remat: bool = True
+    remat: bool = True  # rematerialize each block in a training backward
     dtype: Any = torch.bfloat16
     kv_chunk: int = 1024
     scan_unroll: bool = False
+    # fuse head projection + CE over sequence chunks of this length (0: one
+    # loss over the full logits)
     ce_chunk: int = 0
 
     @property
@@ -152,12 +166,9 @@ def init_params(gen: torch.Generator | None, cfg: TransformerConfig,
     return params
 
 
-def _leaves(tree: dict, prefix: str = ""):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _leaves(v, f"{prefix}{k}/")
-        else:
-            yield f"{prefix}{k}", v
+def _leaves(tree: dict):
+    """(name, leaf) pairs, e.g. ("blocks/attn/wq", tensor), in leaf order."""
+    return zip(TT.paths(tree), TT.leaves(tree))
 
 
 def count_params(cfg: TransformerConfig, ep: int = 1) -> tuple[int, int]:
@@ -210,10 +221,21 @@ def params_from_numpy(tree: dict, cfg: TransformerConfig, device) -> dict:
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _layer(tree: dict, i: int) -> dict:
-    """Layer i's weights out of the stacked block weights (views)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _layers(blocks: dict, n_layers: int) -> list[dict]:
+    """Each layer's weights out of the stacked block weights: views from
+    one `unbind` per leaf, so a backward stacks each leaf's gradient once
+    (indexing layer by layer would give each layer's backward a zero
+    gradient the size of the whole stack)."""
+    def split(tree):
+        return {k: split(v) if isinstance(v, dict) else v.unbind(0)
+                for k, v in tree.items()}
+
+    def pick(tree, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i]
+                for k, v in tree.items()}
+
+    views = split(blocks)
+    return [pick(views, i) for i in range(n_layers)]
 
 
 def _attn_params(p: dict) -> L.AttnParams:
@@ -254,25 +276,39 @@ def _head(params: dict, x: torch.Tensor, cfg: TransformerConfig):
     return logits
 
 
+def _block(x, p, cfg: TransformerConfig, is_global: bool, window: int,
+           theta: float):
+    """One pre-norm block: attention, then the FFN, each residual. Returns
+    (x, post-RoPE K, V)."""
+    h = L.rms_norm(x, p["ln1"])
+    attn_out, kc, vc = _attention_prefill_cached(
+        _attn_params(p), h, cfg, is_global=is_global, window=window,
+        theta=theta, qk=(p["attn"].get("qnorm"), p["attn"].get("knorm")),
+    )
+    x = x + attn_out
+    h2 = L.rms_norm(x, p["ln2"])
+    return x + _ffn(p, h2, cfg, decode=False), kc, vc
+
+
 def _forward_trunk(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
                    *, collect_cache: bool = False):
     """Embed + layer stack + final norm. Returns (x, aux, caches|None);
-    caches are the stacked post-RoPE (K, V), each (L, B, S, K, Dh)."""
+    caches are the stacked post-RoPE (K, V), each (L, B, S, K, Dh). A
+    forward that records a gradient rematerializes each block in the
+    backward when `cfg.remat` is set."""
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
     window = cfg.sliding_window if cfg.sliding_window > 0 else s + 1
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
+    layers = _layers(params["blocks"], cfg.n_layers)
     ks, vs = [], []
-    for i, (is_global, theta) in enumerate(
-            zip(cfg.is_global_layers(), cfg.rope_thetas())):
-        p = _layer(params["blocks"], i)
-        h = L.rms_norm(x, p["ln1"])
-        attn_out, kc, vc = _attention_prefill_cached(
-            _attn_params(p), h, cfg, is_global=is_global, window=window,
-            theta=theta, qk=(p["attn"].get("qnorm"), p["attn"].get("knorm")),
-        )
-        x = x + attn_out
-        h2 = L.rms_norm(x, p["ln2"])
-        x = x + _ffn(p, h2, cfg, decode=False)
+    for p, is_global, theta in zip(layers, cfg.is_global_layers(),
+                                   cfg.rope_thetas()):
+        if remat:
+            x = checkpoint(_block, x, p, cfg, is_global, window, theta,
+                           use_reentrant=False)[0]
+            continue
+        x, kc, vc = _block(x, p, cfg, is_global, window, theta)
         if collect_cache:
             ks.append(kc)
             vs.append(vc)
@@ -283,8 +319,8 @@ def _forward_trunk(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
         # Load-balance loss from the last layer's router on the final
         # hidden state (the reference's cheap proxy).
         st = cfg.moe_settings()
-        last = {k: v[-1] for k, v in params["blocks"]["moe"].items()}
-        aux = M.moe_aux_loss(M.MoEParams(**last), x, st, st.e_pad(1))
+        aux = M.moe_aux_loss(M.MoEParams(**layers[-1]["moe"]), x, st,
+                             st.e_pad(1))
     caches = (torch.stack(ks), torch.stack(vs)) if collect_cache else None
     return x, aux, caches
 
@@ -328,6 +364,103 @@ def _flash_core(q, k, v, cfg, *, is_global, window):
 
 
 # ---------------------------------------------------------------------------
+# Loss + train step
+# ---------------------------------------------------------------------------
+
+def _label_logit(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The label's logit rounded to bf16 and back, as the reference's
+    one-hot einsum in bf16 gives it; the backward of those casts rounds
+    the label's cotangent to bf16 the same way."""
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return ll.to(torch.bfloat16).to(torch.float32)
+
+
+def ce_loss(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 1e-4):
+    """(nll + z_loss * mean(lse^2), nll): cross-entropy with a z-loss, the
+    logits in float32."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    nll = torch.mean(lse - _label_logit(lf, labels))
+    return nll + z_loss * torch.mean(lse**2), nll
+
+
+def chunked_ce_loss(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                    cfg: TransformerConfig, z_loss: float = 1e-4):
+    """Head projection + CE over sequence chunks of `cfg.ce_chunk` (one
+    chunk when S is not a multiple of it), summed in chunk order."""
+    b, s, d = x.shape
+    c = cfg.ce_chunk if (cfg.ce_chunk and s % cfg.ce_chunk == 0) else s
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, c):
+        logits = x[:, c0:c0 + c] @ head.to(x.dtype)  # (B, c, V)
+        if cfg.padded_vocab != cfg.vocab:
+            dead = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
+            logits = logits.masked_fill(dead, L.NEG_INF)
+        lf = logits.to(torch.float32)
+        lse = torch.logsumexp(lf, dim=-1)
+        ll = _label_logit(lf, labels[:, c0:c0 + c])
+        nll_sum = nll_sum + torch.sum(lse - ll)
+        z_sum = z_sum + torch.sum(lse**2)
+    n = b * s
+    return nll_sum / n + z_loss * z_sum / n, nll_sum / n
+
+
+def make_loss_fn(cfg: TransformerConfig, aux_weight: float = 0.01):
+    """loss_fn(params, tokens, labels) -> (total, {"loss": nll, "aux"})."""
+    use_chunked = cfg.ce_chunk > 0
+
+    def loss_fn(params, tokens, labels):
+        if use_chunked:
+            x, aux = forward_hidden(params, tokens, cfg)
+            head = (params["embed"].T if cfg.tied_embeddings
+                    else params["head"])
+            total, nll = chunked_ce_loss(x, head, labels, cfg)
+        else:
+            logits, aux, _ = forward(params, tokens, cfg)
+            total, nll = ce_loss(logits, labels)
+        total = total + aux_weight * aux
+        return total, {"loss": nll, "aux": aux}
+
+    return loss_fn
+
+
+def make_train_step(cfg: TransformerConfig, opt_cfg: AdamWConfig,
+                    n_micro: int = 1):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics); batch: {"tokens", "labels"} (B, S) int32 on the params'
+    device. With `n_micro` > 1 the batch is split into that many
+    micro-batches whose gradients are summed in float32 and averaged;
+    the loss metrics are the last micro-batch's. Metrics are 0-d tensors
+    on the device (no host sync)."""
+    loss_fn = make_loss_fn(cfg)
+
+    def grad_fn(params, tokens, labels):
+        return TT.grad(loss_fn, params, tokens, labels)
+
+    def train_step(params, opt_state, batch):
+        tokens, labels = batch["tokens"], batch["labels"]
+        if n_micro == 1:
+            grads, metrics = grad_fn(params, tokens, labels)
+        else:
+            mb = tokens.shape[0] // n_micro
+            tk = tokens.reshape(n_micro, mb, -1)
+            lb = labels.reshape(n_micro, mb, -1)
+            grads = TT.map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            for t, lab in zip(tk, lb):
+                g, metrics = grad_fn(params, t, lab)
+                grads = TT.map(lambda a, x: a + x.to(torch.float32), grads, g)
+                del g
+            grads = TT.map(lambda g: g / n_micro, grads)
+        new_params, new_state, om = adamw_update(opt_cfg, grads, opt_state,
+                                                 params)
+        return new_params, new_state, dict(metrics, **om)
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
 # Serving: prefill + decode
 # ---------------------------------------------------------------------------
 
@@ -349,9 +482,9 @@ def decode_logits(params: dict, kc: torch.Tensor, vc: torch.Tensor, pos: int,
     kc/vc (L, B, S_max, K, Dh) in place."""
     x = _embed(params, tokens, cfg)[:, None, :]  # (B, 1, D)
     window = cfg.sliding_window if cfg.sliding_window > 0 else kc.shape[2] + 1
-    for i, (is_global, theta) in enumerate(
-            zip(cfg.is_global_layers(), cfg.rope_thetas())):
-        p = _layer(params["blocks"], i)
+    layers = _layers(params["blocks"], cfg.n_layers)
+    for i, (p, is_global, theta) in enumerate(
+            zip(layers, cfg.is_global_layers(), cfg.rope_thetas())):
         h = L.rms_norm(x, p["ln1"])
         attn_out = _decode_attn(
             _attn_params(p), h, kc[i], vc[i], pos, cfg, is_global, window,

@@ -1,0 +1,106 @@
+"""AdamW with global-norm clipping and a linear-warmup cosine schedule, as
+`repro.optim.adamw`: m and v mirror the param tree in float32, the
+update math runs in float32 and the result is cast back to each param's
+dtype. The functions are functional (new tensors out, nothing updated in
+place) and take no gradient.
+
+Every scalar is a float32 tensor on the params' device, computed as the
+reference computes it (`step` cast to float32, `b1 ** t` in float32):
+Python floats would compute `0.9 ** t` in float64 and drift from it. No
+scalar is read back to the host, so a step makes no host sync.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from repro_torch import tree as TT
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    # Cross-replica gradient compression: cast grads to bf16 before the
+    # optimizer sees them (the global norm included; update math stays f32).
+    grad_compression_bf16: bool = True
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    step = step.to(torch.float32)
+    warm = step / max(1.0, cfg.warmup_steps)
+    prog = (step - cfg.warmup_steps) / max(
+        1.0, cfg.total_steps - cfg.warmup_steps
+    )
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (
+        1 + torch.cos(math.pi * torch.clamp(prog, 0.0, 1.0))
+    )
+    return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def adamw_init(params: Any) -> dict:
+    """Zero m and v (float32, each param's shape and device) and step 0
+    (int32, on the first param's device)."""
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
+                                  device=p.device)
+    device = TT.leaves(params)[0].device
+    return {
+        "m": TT.map(zeros, params),
+        "v": TT.map(zeros, params),
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    """sqrt of the sum of every leaf's float32 sum of squares, the leaves
+    summed in the reference's leaf order."""
+    sq = [torch.sum(g.to(torch.float32) ** 2) for g in TT.leaves(tree)]
+    return torch.sqrt(sum(sq))
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, grads: Any, state: dict, params: Any):
+    """Returns (new_params, new_state, metrics). Param dtype is preserved
+    (bf16 params get f32 update math, then cast back)."""
+    if cfg.grad_compression_bf16:
+        grads = TT.map(lambda g: g.to(torch.bfloat16), grads)
+    gnorm = global_norm(grads)
+    # a tensor divided, not `float / tensor` (torch's reciprocal-times form)
+    scale = torch.clamp(
+        torch.full_like(gnorm, cfg.clip_norm) / torch.clamp(gnorm, min=1e-12),
+        max=1.0)
+    step = state["step"] + 1
+    lr = schedule(cfg, step)
+    t = step.to(torch.float32)
+    bc1 = 1 - cfg.b1**t
+    bc2 = 1 - cfg.b2**t
+
+    def upd(p, g, m, v):
+        g = g.to(torch.float32) * scale
+        m = cfg.b1 * m + (1 - cfg.b1) * g
+        v = cfg.b2 * v + (1 - cfg.b2) * g * g
+        mhat = m / bc1
+        vhat = v / bc2
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.to(
+            torch.float32
+        )
+        return (p.to(torch.float32) - lr * delta).to(p.dtype), m, v
+
+    out = [upd(p, g, m, v) for p, g, m, v in zip(
+        TT.leaves(params), TT.leaves(grads), TT.leaves(state["m"]),
+        TT.leaves(state["v"]))]
+    new_p = TT.unflatten(params, [o[0] for o in out])
+    new_m = TT.unflatten(params, [o[1] for o in out])
+    new_v = TT.unflatten(params, [o[2] for o in out])
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    return new_p, {"m": new_m, "v": new_v, "step": step}, metrics

@@ -1030,3 +1030,185 @@ def test_gnn_segment_ops_on_the_card_launch_the_kernel(cuda):
         rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
         S.sorted_segment_sum(msg.double().to(cuda), ids.to(cuda), 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,s", [(5000, 64, 300), (2000, 10, 2000),
+                                   (300, 7, 1)])
+def test_segment_sum_autograd_on_the_card_is_the_kernel_and_a_gather(
+        cuda, n, d, s, dtype):
+    """With a gradient the forward is the kernel's, bit for bit, launched
+    once; the backward equals the plain version's backward exactly (a row
+    gather, dropped ids at zero) in the data's dtype."""
+    gen = torch.Generator().manual_seed(n + s)
+    ids = torch.sort(torch.randint(-3, s + 4, (n,), generator=gen,
+                                   dtype=torch.int32)).values.to(cuda)
+    data = torch.randn((n, d), generator=gen).to(dtype).to(cuda)
+    g = torch.randn((s, d), generator=gen).to(dtype).to(cuda)
+    with torch.no_grad():
+        plain_fwd = seg_ops.sorted_segment_sum(data, ids, s)
+    x = data.clone().requires_grad_(True)
+    y = data.clone().requires_grad_(True)
+    before = kernels.LAUNCHES["segment_reduce"]
+    out = seg_ops.sorted_segment_sum(x, ids, s)
+    assert kernels.LAUNCHES["segment_reduce"] == before + 1
+    assert out.requires_grad and torch.equal(out, plain_fwd)
+    out.backward(g)
+    seg_ref.sorted_segment_sum(y, ids, s).backward(g)
+    torch.cuda.synchronize()
+    assert x.grad.dtype == dtype and torch.equal(x.grad, y.grad)
+    assert kernels.LAUNCHES["segment_reduce"] == before + 1  # no kernel
+
+
+def _assert_grads_close(name, got, want, exact, bound=1e-4):
+    """Card gradients against the CPU port's: each leaf within `bound`
+    relative L2 of its own norm; a leaf whose float64 gradient is zero
+    (GAT's last a_dst when every score of a segment lies on one side of
+    the leaky ReLU) within 1e-4 of the whole gradient's norm
+    (`_torch_trees`)."""
+    from _torch_trees import assert_grads_close
+
+    from repro_torch import tree as TT
+
+    assert_grads_close(name, TT.paths(want), TT.leaves(got), TT.leaves(want),
+                       TT.leaves(exact), bound)
+
+
+TRAIN_GNN_CASES = {
+    "gat-cora": ("gat-cora", {}, (40, 90, 96, 12, 3)),
+    "schnet": ("schnet", {}, (40, 90, 96, 1, 3)),
+    "meshgraphnet-remat": ("meshgraphnet", {"remat": True}, (40, 90, 96, 8, 3)),
+    "graphcast-streamed-remat": ("graphcast", {"edge_stream_chunks": 4,
+                                               "remat": True},
+                                 (300, 2000, 2048, 6, 3)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRAIN_GNN_CASES))
+def test_gnn_train_step_on_the_card_equals_the_cpu(cuda, case):
+    """Every gradient leaf of the loss, card against the CPU port, within
+    relative L2 1e-4 (`_assert_grads_close`), the params upstream of every
+    aggregation included (the kernel's backward); then one registry train
+    step with a warmup of 2 (lr 1.5e-4, so an update is well above the
+    params' 1e-5): params within 1e-5. segment_reduce launches once per
+    aggregation, and again for each rematerialized block."""
+    import dataclasses
+    import importlib
+
+    from _torch_trees import float64_grad
+
+    from repro_torch import tree as TT
+    from repro_torch.configs.registry import (
+        ARCHS, DEFAULT_OPT, _gnn_module, gnn_train_step)
+    from repro_torch.data.graphs import make_full_graph, to_device
+    from repro_torch.launch.train import reduced_gnn
+    from repro_torch.models.gnn.graphcast import _pick_chunks
+    from repro_torch.optim.adamw import adamw_init
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    arch, changes, graph = TRAIN_GNN_CASES[case]
+    cfg = dataclasses.replace(
+        reduced_gnn(arch, importlib.import_module(ARCHS[arch]).CONFIG),
+        **changes)
+    mod = _gnn_module(arch)
+    g_np = make_full_graph(arch, *graph)
+    params = mod.init_params(torch.Generator().manual_seed(4), cfg)
+    g_cpu, g_dev = to_device(g_np, "cpu"), to_device(g_np, cuda)
+    p_dev = _tree_to(params, cuda)
+    kernels.LAUNCHES.clear()
+    got = TT.grad(mod.loss_fn, p_dev, g_dev, cfg, has_aux=False)
+    launches = kernels.LAUNCHES["segment_reduce"]
+    want = TT.grad(mod.loss_fn, params, g_cpu, cfg, has_aux=False)
+    _assert_grads_close(case, got, want,
+                        float64_grad(mod.loss_fn, params, g_cpu, cfg=cfg))
+    if arch in ("gat-cora", "meshgraphnet"):
+        fwd = cfg.n_layers
+    elif arch == "schnet":
+        fwd = cfg.n_interactions + 1
+    else:
+        fwd = cfg.n_layers + sum(_pick_chunks(e, cfg.edge_stream_chunks)
+                                 for e in (g_np.n_edges,
+                                           g_np.extras["m2g_src"].shape[0]))
+    assert launches == fwd * (2 if getattr(cfg, "remat", False) else 1)
+    step = gnn_train_step(mod, cfg, dataclasses.replace(DEFAULT_OPT,
+                                                        warmup_steps=2))
+    p1, _, m = step(p_dev, adamw_init(p_dev), g_dev)
+    q1, _, n = step(params, adamw_init(params), g_cpu)
+    torch.testing.assert_close(m["grad_norm"].cpu(), n["grad_norm"],
+                               rtol=1e-4, atol=1e-4)
+    for a, b in zip(TT.leaves(p1), TT.leaves(q1)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+
+
+def test_deepfm_train_step_on_the_card_equals_the_cpu(cuda):
+    """The table's dense gradient (through the kernel's backward) and the
+    MLP's, card against the CPU port, within relative L2 1e-4; one train
+    step (warmup 2, lr 1.5e-4) with params within 1e-5; two segment_reduce
+    launches a step."""
+    import dataclasses
+
+    from _torch_trees import float64_grad
+
+    from repro_torch import tree as TT
+    from repro_torch.configs.registry import DEFAULT_OPT, deepfm_train_step
+    from repro_torch.data.recsys import CTRPipeline
+    from repro_torch.models.recsys import deepfm as D
+    from repro_torch.optim.adamw import adamw_init
+
+    cfg = D.DeepFMConfig(n_sparse=39, embed_dim=10, mlp_dims=(40, 40, 40),
+                         rows_per_field=300)
+    params = D.init_params(torch.Generator().manual_seed(2), cfg)
+    p_dev = _tree_to(params, cuda)
+    b = CTRPipeline(cfg.n_sparse, cfg.rows_per_field, 256).batch_at(0)
+    batch = {k: torch.from_numpy(v) for k, v in b.items()}
+    batch_dev = {k: v.to(cuda) for k, v in batch.items()}
+    kernels.LAUNCHES.clear()
+    got = TT.grad(D.bce_loss, p_dev, batch_dev["ids"], batch_dev["labels"],
+                  cfg, has_aux=False)
+    assert kernels.LAUNCHES["segment_reduce"] == 2
+    want = TT.grad(D.bce_loss, params, batch["ids"], batch["labels"], cfg,
+                   has_aux=False)
+    assert bool(want["table"].any())
+    _assert_grads_close("deepfm", got, want, float64_grad(
+        D.bce_loss, params, batch["ids"], batch["labels"], cfg=cfg))
+    step = deepfm_train_step(cfg, dataclasses.replace(DEFAULT_OPT,
+                                                      warmup_steps=2))
+    p1, _, _ = step(p_dev, adamw_init(p_dev), batch_dev)
+    q1, _, _ = step(params, adamw_init(params), batch)
+    for a, w in zip(TT.leaves(p1), TT.leaves(q1)):
+        torch.testing.assert_close(a.cpu(), w, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_micro", [1, 2])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "olmoe-1b-7b", "qwen2.5-32b"])
+def test_lm_train_step_on_the_card_equals_the_cpu(cuda, arch, n_micro):
+    """One float32 train step of a reduced LM arch, card against the CPU
+    port: loss, aux and grad norm within rtol/atol 1e-4, every updated
+    leaf within 1e-5."""
+    import dataclasses
+    import importlib
+
+    import numpy as np
+
+    from repro_torch import tree as TT
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch.train import reduced_lm
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(
+        reduced_lm(importlib.import_module(ARCHS[arch]).CONFIG),
+        dtype=torch.float32)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (4, 33)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    step = T.make_train_step(cfg, AdamWConfig(warmup_steps=10), n_micro)
+    p1, s1, m1 = step(_tree_to(params, cuda), adamw_init(_tree_to(params, cuda)),
+                      {k: v.to(cuda) for k, v in batch.items()})
+    p0, s0, m0 = step(params, adamw_init(params), batch)
+    for k in ("loss", "aux", "grad_norm"):
+        torch.testing.assert_close(m1[k].cpu(), m0[k], rtol=1e-4, atol=1e-4)
+    for a, b in zip(TT.leaves(p1), TT.leaves(p0)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)

@@ -63,6 +63,14 @@ def test_port_imports_without_jax_or_reference():
         "repro_torch.configs.meshgraphnet",
         "repro_torch.configs.graphcast",
         "repro_torch.configs.deepfm",
+        "repro_torch.tree",
+        "repro_torch.optim",
+        "repro_torch.optim.adamw",
+        "repro_torch.data.tokens",
+        "repro_torch.checkpoint",
+        "repro_torch.checkpoint.manager",
+        "repro_torch.train",
+        "repro_torch.train.trainer",
     ):
         assert m in mods, m
     code = (
