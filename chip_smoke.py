@@ -162,13 +162,44 @@ Phases (any failure ends the run with a non-zero exit and no "ok" line):
      rematerialized block). Each timed config: step ms (p50, CUDA events)
      beside its bound, tokens or examples a second, peak memory, device
      launches and card busy ms a step (profiler), the optimizer's ms apart.
- 13. summary — the stacked-forms line, the kernels line, the card line,
+ 13. model exchanges across ranks — 4 ranks spawned once, sharing the card
+     over gloo (their exchanges staged through the host; NCCL refuses two
+     ranks on one card), mesh (1, 4) over ("data", "model"), every path on
+     every rank: (a) olmoe-1b-7b at full width and depth in bf16 with its
+     64 experts over the ranks (ep = 4, `init_params(ranks=)`), 2 x 1024
+     prompt tokens and 16 greedy ones through Generator, at the published
+     capacity factor (its drops logged) and at 8 (none, at ep = 4 or 1),
+     the decode with sync debugging at "error" (the gloo exchanges
+     excepted: gloo waits for its host copies); rank 0 against the
+     one-process port at ep = 1 on the card (tokens equal, or a flip only
+     at a top-two gap within the bf16 bound; logits within it), and 2
+     layers in float32 (TF32 off) within 1e-4; (b) DeepFM at its published
+     config with the table's 33,540,000 rows over the ranks: the sharded
+     lookup bit-equal to table[ids] at serve_p99 and serve_bulk and on a
+     skewed stream past the reference's capacity, the table's gradient
+     through it within 1e-6 of the scatter-add, every rank's logits within
+     1e-5 of the one-process forward on the card; (c) MeshGraphNet (15 x
+     128) on a graph of ogb_products' d_feat and mean degree (2^17 nodes)
+     and GraphCast (16 x 512, streamed) on a 4,096-node grid, node-sharded
+     with the shuffle, bf16 and remat as the registry binds them: the
+     first forward with no host sync but the exchanges', segment_reduce
+     launched once per aggregation on every rank, each route's owner-side
+     Reduce in that forward held to the plain version on the rows the
+     rank received (float32 within 1e-5 / 1e-4 of the float64 sum, bf16
+     within 2^-8 / 1e-4), outputs finite; in float32 the ranks' node
+     outputs within 1e-4 of the one-process port.
+     Per rank: ms (CUDA events), peak memory, the bytes each call hands
+     the collectives, and the collectives' share of a call (in a run with
+     a synchronize around each collective). Any rank's failure or hang
+     fails the phase.
+ 14. summary — the stacked-forms line, the kernels line, the card line,
      then the result line.
 
-Each of the paths of phases 3, 5, 6, 7, 8, 9, 11 and 12 runs with the launch
-counts set to 0 just before it and read just after (in phase 9 on each rank);
-the kernels line reports each kernel's launches from the path that runs it
-(segment_reduce's: the kernel API's, phase 11's and phase 12's, also apart).
+Each of the paths of phases 3, 5, 6, 7, 8, 9, 11, 12 and 13 runs with the
+launch counts set to 0 just before it and read just after (in phases 9 and
+13 on each rank); the kernels line reports each kernel's launches from the
+path that runs it (segment_reduce's: the kernel API's, phase 11's, phase
+12's and phase 13's, also apart).
 
 Needs the repository's src/ beside it and one CUDA card; exits non-zero
 without them.
@@ -184,6 +215,18 @@ runs the build and phase 11 alone (no result line).
     python3 chip_smoke.py --train-only
 
 runs the build and phase 12 alone (no result line).
+
+    python3 chip_smoke.py --exchanges-only
+
+runs the build and phase 13 alone (no result line).
+
+    python3 chip_smoke.py --exchanges-nccl
+
+runs the build and phase 13 with one NCCL rank a card, on a host of
+several cards (4 H100s joined by NVLink): (a) and (b) at the same shapes, and
+MeshGraphNet alone at ogb_products' registry dims (2,449,408 nodes,
+61,859,328 edge slots, bf16, remat, the shuffle; outputs finite). No
+result line.
 
     python3 chip_smoke.py --kernels-only [--src OTHER/src]
 
@@ -3696,6 +3739,720 @@ def train_phase(dev) -> dict:
     return out
 
 
+# -- phase 13: model exchanges across ranks ------------------------------------
+
+XRANKS = 4
+XRANK_AXES = ("data", "model")
+# (a) olmoe-1b-7b at full width and depth, bf16, its 64 experts over the
+# ranks; the one-process port at ep = 1 on the card is the reference
+EP_PROMPT, EP_NEW = 1024, 16
+EP_SEED = 40
+# neither ep = 4 nor ep = 1 drops at this capacity factor: an expert gets
+# at most every token (2,048 rows); its bucket holds n_assign / e_local *
+# cf + 8 = 256 cf + 8 rows at either ep, and a rank's bucket at ep = 4
+# every assignment from cf = 4
+EP_CF_EXACT = 8.0
+# bf16 logits, ranks vs one process: the same weights and ops but for the
+# expert GEMMs' batch count and where the combine's partial sums meet;
+# phase 10's bf16 bound at full depth (LM_FULL_ATOL's reasoning), and a
+# greedy token may flip only where the one-process top-two gap is within it
+EP_BF16_ATOL = LM_FULL_ATOL
+EP_F32_LAYERS, EP_F32_PROMPT, EP_F32_STRIDE = 2, 256, 16
+# (b) DeepFM at its published config, the table's rows over the ranks
+DEEPFM_SEED = 50
+DEEPFM_XRANK_TOL = dict(rtol=1e-5, atol=1e-5)
+# the table's gradient through the sharded lookup against the one-process
+# scatter-add: float32 sums of up to a few hundred terms (zipf ids hit a
+# field's first rows often) in another order, each row within 1e-6 of the
+# sum of its terms' magnitudes
+DEEPFM_GRAD_RTOL = 1e-6
+# (c) graphs of ogb_products' d_feat (100) and mean degree (~25), cut to
+# what 4 gloo ranks on one card run in the phase's time; GraphCast on a
+# grid near full_graph_sm's (2,708 nodes), rounded to split over the ranks
+XRANK_MGN_NODES = 2**17
+XRANK_GC_NODES = 4096
+XRANK_DEGREE = 25
+XRANK_GNN_SEED = 60
+XRANK_GNN_REPEATS = 2
+# node outputs, ranks vs one process, float32: the shuffle sums in the
+# one-process order, but the kernel's chunks (and the streamed sets'
+# chunks) round apart; phase 11's minibatch_lg bound on MeshGraphNet
+XRANK_GNN_TOL = dict(rtol=1e-4, atol=1e-4)
+# the owner-side Reduce of every shuffle scatter (segment_reduce on the
+# rows a rank received), held to the plain version on the same rows, in
+# blocks of this many segments: float32 to the float64 sum within phase
+# 2's bound; bfloat16 (compensated float32 sums rounded once to bf16, half
+# an ulp = 2^-9 of the value) to the float64 sum within 2^-8 of it, and
+# 1e-4 beside for a crossing segment's float32 partials under cancellation
+SCATTER_SEG_BLOCK = 8192
+SCATTER_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),
+               torch.bfloat16: dict(rtol=2**-8, atol=1e-4)}
+# H100 SXM NVLink 4 (NVIDIA data sheet): 900 GB/s a card, both directions
+# together; the bytes a rank must send leave at 450 GB/s at best
+NVLINK_BYTES_PER_S = 450e9
+
+
+def nvlink_ms(remote_bytes: int) -> float:
+    """The least time a card's NVLink needs to send `remote_bytes`."""
+    return round(remote_bytes / NVLINK_BYTES_PER_S * 1e3, 4)
+
+
+class CollectiveBytes:
+    """While entered: the bytes this rank hands torch.distributed's
+    collectives (each call's input), the part of them that must reach
+    another rank (`remote`: an exchange's rows for the others, an
+    all-gather's input once for each other rank, an all-reduce's 2 (n -
+    1) / n of its input as a ring moves it), the calls and, with `timed`,
+    the seconds spent in them between a synchronize before and after each
+    (every wait on the peers and on the card counted; a run of its own,
+    as the syncs stop the host running ahead); the counts add up over
+    every entry. Patches the three collectives the port calls."""
+
+    NAMES = ("all_to_all_single", "all_gather_into_tensor", "all_reduce")
+
+    def __init__(self, timed: bool = False):
+        self.bytes = 0
+        self.remote = 0
+        self.calls = 0
+        self.seconds = 0.0
+        self.timed = timed
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self._dist = dist
+        self._orig = {n: getattr(dist, n) for n in self.NAMES}
+        for n, f in self._orig.items():
+            setattr(dist, n, self._counted(f, n))
+        return self
+
+    def _remote(self, name: str, args, kw) -> int:
+        dist = self._dist
+        group = kw.get("group")
+        size = dist.get_world_size(group)
+        src = args[0] if name == "all_reduce" else args[1]
+        n = src.numel() * src.element_size()
+        if name == "all_reduce":
+            return 2 * n * (size - 1) // size
+        if name == "all_gather_into_tensor":
+            return n * (size - 1)
+        splits = args[3] if len(args) > 3 else kw.get("input_split_sizes")
+        me = dist.get_rank(group)
+        row = n // max(1, src.shape[0])
+        return n - (splits[me] * row if splits else n // size)
+
+    def _counted(self, f, name: str):
+        def call(*args, **kw):
+            src = args[0] if name == "all_reduce" else args[1]
+            self.bytes += src.numel() * src.element_size()
+            self.remote += self._remote(name, args, kw)
+            self.calls += 1
+            if not self.timed:
+                return f(*args, **kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return f(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t
+
+        return call
+
+    def __exit__(self, *exc):
+        for n, f in self._orig.items():
+            setattr(self._dist, n, f)
+
+
+def collective_share(fn, calls: int = 1) -> dict:
+    """Per call of `fn` (already warm), in runs of their own: the ms spent
+    in its collectives (a synchronize before and after each), the call's
+    wall ms in that run, and the share. (The profiler was tried first: it
+    slowed a gloo prefill 3.3x, and NCCL's kernels under it wait for
+    peers the profiler slowed, so their device time exceeded the step's.)"""
+    timed = CollectiveBytes(timed=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with timed:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3 / calls
+    coll = timed.seconds * 1e3 / calls
+    return {"wall_ms": round(wall, 3), "collective_ms": round(coll, 3),
+            "share": round(coll / wall, 4)}
+
+
+def ep_tokens(dev, vocab: int, shape) -> torch.Tensor:
+    return torch.randint(0, vocab, shape, dtype=torch.int32, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             EP_SEED + 1))
+
+
+def ep_decode(gen, cfg, tokens, ranks=None):
+    """Prefill, then greedy steps to EP_NEW tokens, timed (CUDA events
+    between them): (tokens (B, EP_NEW), each step's logits on the card,
+    prefill ms, step ms, the collectives' counts of the prefill and of the
+    steps, one decode step again at the last position (a function))."""
+    from repro_torch.models import transformer as T
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(EP_NEW + 1)]
+    pre, step = CollectiveBytes(), CollectiveBytes()
+    out, logits_at = [], []
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        ev[0].record()
+        with pre:
+            nxt, kc, vc = gen.start(tokens)
+        ev[1].record()
+        out.append(nxt)
+        for i in range(1, EP_NEW):
+            with step:
+                logits = T.decode_logits(gen.params, kc, vc,
+                                         EP_PROMPT + i - 1, nxt, cfg, ranks)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            ev[i + 1].record()
+            out.append(nxt)
+            logits_at.append(logits)
+        torch.cuda.synchronize()
+
+    def again():
+        with torch.inference_mode():
+            T.decode_logits(gen.params, kc, vc, EP_PROMPT + EP_NEW - 2,
+                            out[-2], cfg, ranks)
+
+    return (torch.stack(out, dim=1), logits_at, ev[0].elapsed_time(ev[1]),
+            [ev[i].elapsed_time(ev[i + 1]) for i in range(1, EP_NEW)],
+            pre, step, again)
+
+
+def ep_rank_runs(ranks) -> dict:
+    """(a) on one rank: olmoe-1b-7b's experts over the ranks (ep = world),
+    at the published capacity factor (its drops logged) and at
+    EP_CF_EXACT (none), the decode with no host sync but the gloo
+    exchanges'; timed; and 2 layers in float32."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.decode import Generator
+
+    dev = ranks.device
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: a float32 comparison would mean nothing")
+    cfg = arch_config("olmoe-1b-7b")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(EP_SEED),
+                           cfg, ranks=ranks)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    tokens = ep_tokens(dev, cfg.vocab, (2, EP_PROMPT))
+    res = {"param_bytes": param_bytes(params), "init_s": round(init_s, 3),
+           "ep": ranks.axis_size("model")}
+    published = Generator(cfg, params, device=dev,
+                          max_len=EP_PROMPT + EP_NEW, ranks=ranks)
+    t = time.perf_counter()
+    with torch.inference_mode():
+        published.start(tokens)  # the prefill: the sort-based layers
+    res["published"] = {
+        "capacity_factor": cfg.capacity_factor,
+        "dropped": int(published.moe_dropped),
+        "assignments": cfg.n_layers * 2 * EP_PROMPT // res["ep"] * cfg.top_k,
+        "prefill_cold_s": round(time.perf_counter() - t, 3)}
+    exact = dataclasses.replace(cfg, capacity_factor=EP_CF_EXACT)
+    gen = Generator(exact, params, device=dev, max_len=EP_PROMPT + EP_NEW,
+                    ranks=ranks)
+    toks = generate_without_sync(gen, tokens, EP_NEW)
+    check(int(gen.moe_dropped) == 0,
+          f"olmoe ep={res['ep']} at cf {EP_CF_EXACT} dropped "
+          f"{int(gen.moe_dropped)} assignments")
+    got, logits_at, pre_ms, step_ms, pre_b, step_b, one_step = ep_decode(
+        gen, exact, tokens, ranks)
+    steps = max(1, EP_NEW - 1)
+    check(torch.equal(got, toks), "olmoe ep: the timed decode's tokens "
+          "differ from Generator.generate's")
+    p50 = statistics.median(step_ms)
+    with torch.inference_mode():
+        res.update(
+            prefill_ms=round(pre_ms, 3), decode_ms_p50=round(p50, 3),
+            decode_ms_min=round(min(step_ms), 3),
+            decode_ms_max=round(max(step_ms), 3),
+            prefill_exchange_bytes=pre_b.bytes,
+            prefill_remote_bytes=pre_b.remote,
+            prefill_nvlink_bound_ms=nvlink_ms(pre_b.remote),
+            step_exchange_bytes=step_b.bytes // steps,
+            step_remote_bytes=step_b.remote // steps,
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            prefill_collectives=collective_share(lambda: gen.start(tokens)),
+            step_collectives=collective_share(one_step, 3))
+    del one_step
+    if ranks.rank == 0:
+        res["tokens"] = toks.cpu()
+        res["step_logits"] = [x.float().cpu() for x in logits_at]
+    del params, published, gen, logits_at
+    torch.cuda.empty_cache()
+    # 2 layers in float32
+    cfg32 = arch_config("olmoe-1b-7b", n_layers=EP_F32_LAYERS,
+                        dtype=torch.float32, capacity_factor=EP_CF_EXACT)
+    p32 = T.init_params(torch.Generator(device=dev).manual_seed(EP_SEED + 2),
+                        cfg32, ranks=ranks)
+    tok32 = ep_tokens(dev, cfg32.vocab, (2, EP_F32_PROMPT))
+    with torch.inference_mode():
+        lg = T.forward(p32, tok32, cfg32, ranks=ranks)[0]
+    if ranks.rank == 0:
+        res["f32_logits"] = lg[:, ::EP_F32_STRIDE].cpu()
+    del p32, lg
+    torch.cuda.empty_cache()
+    log(f"rank {ranks.rank} ep: prefill {res['prefill_ms']} ms, decode p50 "
+        f"{res['decode_ms_p50']} ms, peak {res['peak_bytes']}, published cf "
+        f"dropped {res['published']['dropped']}")
+    return res
+
+
+def ep_reference(dev, rec0: dict) -> dict:
+    """(a)'s reference in this process: the one-process port at ep = 1 on
+    the card with the same weights (every expert), held to rank 0."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.decode import Generator
+
+    published = arch_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(published, capacity_factor=EP_CF_EXACT)
+    params = T.init_params(torch.Generator(device=dev).manual_seed(EP_SEED),
+                           cfg)
+    tokens = ep_tokens(dev, cfg.vocab, (2, EP_PROMPT))
+    one = Generator(published, params, device=dev,
+                    max_len=EP_PROMPT + EP_NEW)
+    with torch.inference_mode():
+        one.start(tokens)
+    gen = Generator(cfg, params, device=dev, max_len=EP_PROMPT + EP_NEW)
+    toks = generate_without_sync(gen, tokens, EP_NEW).cpu()
+    check(int(gen.moe_dropped) == 0, "olmoe ep=1 dropped assignments")
+    got, logits_at, pre_ms, step_ms, _, _, _ = ep_decode(gen, cfg, tokens)
+    with torch.inference_mode():
+        last = T.forward(params, tokens, cfg)[0][:, -1]
+    want_logits = [last.float().cpu()] + [x.float().cpu() for x in logits_at]
+    flips, errs = [], []
+    for row in range(toks.shape[0]):
+        diff = (rec0["tokens"][row] != toks[row]).nonzero()
+        last = EP_NEW - 1
+        if len(diff):
+            last = int(diff[0])
+            gap = float(top_two_gap(want_logits[last][row]))
+            flips.append((row, last, gap))
+            check(gap <= EP_BF16_ATOL,
+                  f"olmoe ep row {row} step {last}: tokens differ from the "
+                  f"one-process port's with a top-two gap of {gap}")
+        # a row's decode logits are comparable up to its first flip (the
+        # same history; a decode step drops nothing, so rows do not meet);
+        # rank 0 kept steps 1 to EP_NEW - 1
+        errs += [float_err(rec0["step_logits"][j - 1][row],
+                           want_logits[j][row], rtol=0.0, atol=EP_BF16_ATOL)
+                 for j in range(1, last + 1)]
+    out = {"tokens_equal": not flips, "flips": flips,
+           "one_process_published_dropped": int(one.moe_dropped),
+           "logits_max_abs_err": max(errs) if errs else None,
+           "one_process_prefill_ms": round(pre_ms, 3),
+           "one_process_decode_ms_p50": round(statistics.median(step_ms), 3),
+           "one_process_param_bytes": param_bytes(params)}
+    del params, gen, one, logits_at, last
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, n_layers=EP_F32_LAYERS,
+                                dtype=torch.float32)
+    p32 = T.init_params(torch.Generator(device=dev).manual_seed(EP_SEED + 2),
+                        cfg32)
+    tok32 = ep_tokens(dev, cfg32.vocab, (2, EP_F32_PROMPT))
+    with torch.inference_mode():
+        want = T.forward(p32, tok32, cfg32)[0][:, ::EP_F32_STRIDE].cpu()
+    out["f32_logits_max_abs_err"] = float_err(rec0["f32_logits"], want,
+                                              **LM_F32_TOL)
+    del p32
+    torch.cuda.empty_cache()
+    log(f"ep reference (one process, ep=1): {out}")
+    return out
+
+
+def deepfm_lookup_cap(cfg, n_flat: int, n_dev: int, model: int) -> int:
+    """The reference's per-destination capacity of its sharded lookup
+    (`_build_recsys`'s `make_lookup` in src/repro/configs/registry.py):
+    ids past it come back as zero rows there. The port's lookup sizes
+    its exchanges exactly and needs none."""
+    return max(64, -(-(int(n_flat // n_dev // model
+                           * cfg.shuffle_capacity_factor) + 8) // 8) * 8)
+
+
+def deepfm_batch(cfg, shape: str) -> torch.Tensor:
+    from repro_torch.configs.registry import RECSYS_SHAPES
+    from repro_torch.data.recsys import CTRPipeline
+
+    b = RECSYS_SHAPES[shape]["batch"]
+    return torch.from_numpy(CTRPipeline(cfg.n_sparse, cfg.rows_per_field,
+                                        b).batch_at(0)["ids"])
+
+
+def deepfm_rank_runs(ranks) -> dict:
+    """(b) on one rank: DeepFM's tables row-sharded over the ranks (its
+    ids' slice of each batch), the lookup against table[ids] bit for bit
+    (also on a skewed stream past the reference's capacity), one backward
+    through it against the scatter-add, and forward ms at serve_p99 and
+    serve_bulk."""
+    from repro_torch.models.recsys import deepfm as D
+
+    dev, world, r = ranks.device, ranks.world_size, ranks.rank
+    cfg = arch_config("deepfm")
+    full = D.init_params(torch.Generator(device=dev).manual_seed(DEEPFM_SEED),
+                         cfg)
+    shard = {k: (v.clone() if k in ("table", "fm_w") else v)
+             for k, v in D.shard_params(full, ranks, cfg).items()}
+    lookup = D.make_sharded_lookup(ranks)
+    rows = cfg.total_rows // world
+    res = {"table_rows_per_rank": rows, "logits": {}, "runs": {}}
+    flats = {}
+    for shape in ("serve_p99", "serve_bulk"):
+        ids = deepfm_batch(cfg, shape)
+        b = ids.shape[0] // world
+        mine = ids[r * b:(r + 1) * b].to(dev)
+        flat = D._flat_ids(mine, cfg)
+        flats[shape] = flat
+        with torch.inference_mode():
+            got, got_w = lookup((shard["table"], shard["fm_w"]), flat)
+            check(torch.equal(got, full["table"][flat.long()])
+                  and torch.equal(got_w, full["fm_w"][flat.long()]),
+                  f"deepfm {shape}: the sharded lookup's rows != table[ids]")
+            res["logits"][shape] = D.forward(shard, mine, cfg, lookup).cpu()
+    # a skewed stream: every id owned by rank 0's rows, past the cap
+    n = flats["serve_p99"].numel()
+    skewed = torch.randint(0, rows, (n,), device=dev, dtype=torch.int32,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               DEEPFM_SEED + 1 + r))
+    cap = deepfm_lookup_cap(cfg, n * world, world, world)
+    with torch.inference_mode():
+        check(torch.equal(lookup((shard["table"],), skewed)[0],
+                          full["table"][skewed.long()]),
+              "deepfm: the skewed stream's rows != table[ids]")
+    res["skewed"] = {"ids_per_rank": n, "reference_cap": cap,
+                     "load_on_rank_0_per_sender": n}
+    check(n > cap, f"deepfm: the skewed stream ({n} ids a sender to one "
+          f"rank) does not pass the reference's cap {cap}")
+    # one backward: every rank's ids and weights, so each rank holds the
+    # whole scatter-add of its rows
+    ids = deepfm_batch(cfg, "serve_p99").to(dev)
+    every = D._flat_ids(ids, cfg)
+    w = torch.randn((every.numel(), cfg.embed_dim), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(
+                        DEEPFM_SEED + 9))
+    k = every.numel() // world
+    live = shard["table"].clone().requires_grad_(True)
+    (lookup((live,), every[r * k:(r + 1) * k])[0]
+     * w[r * k:(r + 1) * k]).sum().backward()
+    mine = (every >= r * rows) & (every < (r + 1) * rows)
+    local = (every[mine] - r * rows).long()
+    want = torch.zeros_like(shard["table"]).index_add_(0, local, w[mine])
+    scale = torch.zeros_like(want).index_add_(0, local, w[mine].abs())
+    err = (live.grad - want).abs()
+    res["table_grad_max_abs_err"] = float(err.max())
+    check(bool((err <= DEEPFM_GRAD_RTOL * scale).all()),
+          f"deepfm: the table's gradient is {res['table_grad_max_abs_err']} "
+          "from the scatter-add, past 1e-6 of its terms' magnitudes")
+    del full, live, want, scale, err, w
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for shape, flat in flats.items():
+        ids = deepfm_batch(cfg, shape)
+        b = ids.shape[0] // world
+        mine = ids[r * b:(r + 1) * b].to(dev)
+        counted = CollectiveBytes()
+
+        def fwd():
+            with torch.inference_mode(), counted:
+                D.forward(shard, mine, cfg, lookup)
+
+        ms = time_steps(fwd, GNN_REPEATS)
+        p50 = statistics.median(ms)
+        res["runs"][shape] = {
+            "rows_per_rank": b, "forward_ms_p50": round(p50, 4),
+            "forward_ms_min": round(min(ms), 4),
+            "exchange_bytes_per_call": counted.bytes // GNN_REPEATS,
+            "remote_bytes_per_call": counted.remote // GNN_REPEATS,
+            "nvlink_bound_ms": nvlink_ms(counted.remote // GNN_REPEATS),
+            "collectives": collective_share(fwd, 3)}
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"rank {r} deepfm: {res['runs']}, peak {res['peak_bytes']}")
+    return res
+
+
+def deepfm_reference(dev, recs: list) -> dict:
+    """(b)'s reference: the one-process forward on the card, the same
+    weights, every rank's logits held to its rows."""
+    from repro_torch.models.recsys import deepfm as D
+
+    cfg = arch_config("deepfm")
+    params = D.init_params(
+        torch.Generator(device=dev).manual_seed(DEEPFM_SEED), cfg)
+    out = {}
+    for shape in ("serve_p99", "serve_bulk"):
+        ids = deepfm_batch(cfg, shape).to(dev)
+        with torch.inference_mode():
+            want = D.forward(params, ids, cfg).cpu()
+        got = torch.cat([rec["deepfm"]["logits"][shape] for rec in recs])
+        out[shape] = float_err(got, want, **DEEPFM_XRANK_TOL)
+        fn = lambda ids=ids: D.forward(params, ids, cfg)  # noqa: E731
+        with torch.inference_mode():
+            out[f"{shape}_one_process_ms_p50"] = round(statistics.median(
+                time_steps(fn, GNN_REPEATS)), 4)
+    del params
+    torch.cuda.empty_cache()
+    log(f"deepfm reference (one process): logits max abs err {out}")
+    return out
+
+
+def xrank_graph(arch: str, nodes: int, ogb: bool = False):
+    """(cfg bound as the registry binds a node-sharded graph, whole graph
+    as numpy, stream chunks): ogb_products at its registry dims, or a
+    graph of its d_feat and mean degree with `nodes` nodes."""
+    from repro_torch.configs.registry import (
+        GNN_SHAPES, _gnn_cfg_for_shape, _gnn_dims)
+    from repro_torch.data.graphs import make_full_graph
+
+    sh = dict(GNN_SHAPES["ogb_products"])
+    if not ogb:
+        sh.update(n_nodes=nodes, n_edges=nodes * XRANK_DEGREE)
+    dims = dict(_gnn_dims(arch, sh, 1), shard_nodes=True)
+    cfg = _gnn_cfg_for_shape(arch, arch_config(arch), dims)
+    d_feat = cfg.n_vars if arch == "graphcast" else dims["d_feat"]
+    g = make_full_graph(arch, dims["n"], sh["n_edges"], dims["e"], d_feat,
+                        sh["n_classes"], seed=XRANK_GNN_SEED)
+    return cfg, g, getattr(cfg, "edge_stream_chunks", 0)
+
+
+class ScatterCalls:
+    """While entered: the shuffle scatter's owner-side Reduces
+    (`sorted_segment_sum` in `models.gnn.distributed.scatter_add_nodes`),
+    the first call of each route (each seg_ids) kept with its rows and a
+    copy of its output. The wrapped call is the path's own and launches
+    the kernel once, as without the wrapper."""
+
+    def __init__(self):
+        from repro_torch.models.gnn import distributed as GD
+
+        self.mod, self.calls = GD, {}
+
+    def __enter__(self):
+        self.orig = orig = self.mod.sorted_segment_sum
+
+        def kept(data, ids, n):
+            out = orig(data, ids, n)
+            if id(ids) not in self.calls:
+                self.calls[id(ids)] = (data, ids, n, out.clone())
+            return out
+
+        self.mod.sorted_segment_sum = kept
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.sorted_segment_sum = self.orig
+
+
+def hold_scatters(name: str, calls: ScatterCalls) -> dict:
+    """Each kept Reduce against the plain version (`kernels.segment_reduce
+    .ref`) in float64 on the same received rows, SCATTER_SEG_BLOCK
+    segments at a time; fails beyond SCATTER_TOL."""
+    from repro_torch.kernels.segment_reduce import ref as srr
+
+    worst, rows, routes = 0.0, 0, len(calls.calls)
+    for data, ids, n, got in calls.calls.values():
+        data = data.reshape(data.shape[0], -1)
+        got = got.reshape(n, -1)
+        tol = SCATTER_TOL[data.dtype]
+        starts = list(range(0, n, SCATTER_SEG_BLOCK)) + [n]
+        cuts = torch.searchsorted(ids, torch.tensor(
+            starts, dtype=ids.dtype, device=ids.device)).tolist()
+        for s0, s1, lo, hi in zip(starts, starts[1:], cuts, cuts[1:]):
+            want = srr.sorted_segment_sum(data[lo:hi].double(),
+                                          ids[lo:hi] - s0, s1 - s0)
+            diff = (got[s0:s1].double() - want).abs()
+            check(bool((diff <= tol["atol"] + tol["rtol"] * want.abs())
+                       .all()),
+                  f"{name}: segment_reduce's scatter Reduce (rows "
+                  f"{data.shape[0]}, width {data.shape[1]}, segments {n}, "
+                  f"{data.dtype}) beyond rtol={tol['rtol']} "
+                  f"atol={tol['atol']} of the plain version")
+            worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+        rows += data.shape[0]
+    calls.calls.clear()
+    return {"routes": routes, "rows": rows, "max_abs_err": worst}
+
+
+def gnn_rank_runs(ranks, ogb: bool) -> dict:
+    """(c) on one rank: MeshGraphNet and GraphCast (streamed) node-sharded
+    with the shuffle, bf16 and remat as the registry binds them: the
+    first forward with no host sync but the gloo exchanges', launching
+    segment_reduce once per aggregation, each scatter route's Reduce in
+    it held to the plain version (`hold_scatters`); timed; and in
+    float32, the same, and the rank's node outputs for the one-process
+    comparison. With `ogb`, MeshGraphNet alone at ogb_products' registry
+    dims, bf16 only."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs.registry import _gnn_model_flops, _gnn_module
+    from repro_torch.data.graphs import shard_graph
+
+    runs = [("meshgraphnet", XRANK_MGN_NODES)]
+    if not ogb:
+        runs.append(("graphcast", XRANK_GC_NODES))
+    out = {"launches": 0}
+    for arch, nodes in runs:
+        t = time.perf_counter()
+        cfg, g, chunks = xrank_graph(arch, nodes, ogb)
+        gs = shard_graph(g, ranks, chunks)
+        mod = _gnn_module(arch)
+        params = mod.init_params(torch.Generator(device=ranks.device)
+                                 .manual_seed(XRANK_GNN_SEED + 1), cfg)
+        routes = gs.extras["routes"]
+        want = cfg.n_layers if arch == "meshgraphnet" else (
+            cfg.n_layers + len(routes["g2m"].scatter)
+            + len(routes["m2g"].scatter))
+        built_s = time.perf_counter() - t
+        res = {"nodes": g.n_nodes, "edges": g.n_edges,
+               "local_nodes": gs.n_nodes, "local_edges": gs.n_edges,
+               "build_s": round(built_s, 2)}
+        for label, c in (("bf16", cfg), ("float32", dataclasses.replace(
+                cfg, compute_dtype=torch.float32))):
+            if ogb and label == "float32":
+                continue
+            fn = lambda c=c: mod.apply(params, gs, c, ranks=ranks)  # noqa: E731
+            clear_launches(kernels)
+            with ScatterCalls() as calls:
+                y = run_without_sync(fn)
+            got = kernels.LAUNCHES["segment_reduce"]
+            clear_launches(kernels)
+            check(got == want, f"{arch} {label} rank {ranks.rank}: "
+                  f"segment_reduce launched {got} times, its aggregations "
+                  f"need {want}")
+            out["launches"] += got
+            held = hold_scatters(f"{arch} {label} rank {ranks.rank}", calls)
+            n_routes = sum(len(r.scatter) for r in routes.values())
+            check(held["routes"] == n_routes,
+                  f"{arch} {label}: {held['routes']} of the {n_routes} "
+                  "scatter routes held to the plain version")
+            res[f"scatter_reduce_{label}"] = held
+            check(bool(torch.isfinite(y).all()),
+                  f"{arch} {label}: outputs not finite")
+            if label == "float32":
+                res["y"] = y.cpu()
+                continue
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counted = CollectiveBytes()
+
+            def once():
+                with torch.inference_mode(), counted:
+                    fn()
+
+            ms = time_steps(once, XRANK_GNN_REPEATS)
+            # a rank's share of the model FLOPs, at the float32 rate (bf16
+            # activations meet float32 weights)
+            flops = _gnn_model_flops(arch, cfg, gnn_dims_of(gs, cfg)) / 3
+            b_ms = flops / F32_FLOPS_PER_S * 1e3
+            p50 = statistics.median(ms)
+            res[label] = {
+                "forward_ms_p50": round(p50, 4),
+                "forward_ms_min": round(min(ms), 4),
+                "bound_ms": round(b_ms, 4), "bound_by": "operations",
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "exchange_bytes_per_forward": counted.bytes // len(ms),
+                "remote_bytes_per_forward": counted.remote // len(ms),
+                "nvlink_bound_ms": nvlink_ms(counted.remote // len(ms)),
+                "collective_calls_per_forward": counted.calls // len(ms),
+                "segment_reduce_launches": got,
+                "collectives": collective_share(once)}
+        out[arch] = res
+        log(f"rank {ranks.rank} {arch}: {res.get('bf16')}; scatter "
+            f"Reduces held to the plain version: bf16 "
+            f"{res['scatter_reduce_bf16']}, float32 "
+            f"{res.get('scatter_reduce_float32')}")
+        del params, gs, g
+        torch.cuda.empty_cache()
+    return out
+
+
+def gnn_reference(dev, recs: list) -> dict:
+    """(c)'s reference: each arch's float32 forward in one process on the
+    whole graph, the same weights, against the ranks' outputs."""
+    import dataclasses
+
+    from repro_torch.configs.registry import _gnn_module
+    from repro_torch.data.graphs import to_device
+
+    out = {}
+    for arch, nodes in (("meshgraphnet", XRANK_MGN_NODES),
+                        ("graphcast", XRANK_GC_NODES)):
+        cfg, g, _ = xrank_graph(arch, nodes)
+        one = dataclasses.replace(cfg, node_spec=(), shuffle_gather=False,
+                                  compute_dtype=torch.float32)
+        mod = _gnn_module(arch)
+        params = mod.init_params(torch.Generator(device=dev)
+                                 .manual_seed(XRANK_GNN_SEED + 1), one)
+        with torch.inference_mode():
+            want = mod.apply(params, to_device(g, dev), one).cpu()
+        got = torch.cat([rec["gnn"][arch]["y"] for rec in recs])
+        out[arch] = float_err(got, want, **XRANK_GNN_TOL)
+        del params
+        torch.cuda.empty_cache()
+    log(f"gnn reference (one process, float32): outputs max abs err {out}")
+    return out
+
+
+def exchange_rank_prog(ranks, ogb: bool) -> dict:
+    """Phase 13 on one rank: (a), (b) and (c) in turn."""
+    t = time.perf_counter()
+    out = {"rank": ranks.rank, "ep": ep_rank_runs(ranks),
+           "deepfm": deepfm_rank_runs(ranks),
+           "gnn": gnn_rank_runs(ranks, ogb)}
+    out["wall_s"] = round(time.perf_counter() - t, 1)
+    return out
+
+
+def exchange_phase(dev, nccl: bool = False) -> dict:
+    """Phase 13: the model's exchanges across ranks. One card: 4 ranks
+    sharing it over gloo (staged through the host; NCCL refuses two ranks
+    on one card), spawned once, every path on every rank; `nccl`: one
+    NCCL rank a card, MeshGraphNet at ogb_products' registry dims. The
+    references run in this process after the ranks are gone."""
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count() if nccl else XRANKS
+    recs = spawn_ranks(world, "exchange_rank_prog", nccl,
+                       device=None if nccl else str(dev),
+                       backend=None if nccl else "gloo",
+                       axis_sizes=(1, world), axis_names=XRANK_AXES)
+    ranks_s = time.perf_counter() - t0
+    out = {"world": world, "backend": "nccl" if nccl else "gloo",
+           "ranks_wall_s": round(ranks_s, 1),
+           "segment_reduce_launches": sum(r["gnn"]["launches"]
+                                          for r in recs)}
+    check(out["segment_reduce_launches"] > 0,
+          "phase 13: segment_reduce was not launched")
+    out["ep_reference"] = ep_reference(dev, recs[0]["ep"])
+    out["deepfm_reference"] = deepfm_reference(dev, recs)
+    if not nccl:
+        out["gnn_reference"] = gnn_reference(dev, recs)
+    for rec in recs:
+        rec["ep"].pop("tokens", None)
+        rec["ep"].pop("step_logits", None)
+        rec["ep"].pop("f32_logits", None)
+        rec["deepfm"].pop("logits")
+        for arch in ("meshgraphnet", "graphcast"):
+            rec["gnn"].get(arch, {}).pop("y", None)
+    out["ranks"] = recs
+    out["seconds"] = round(time.perf_counter() - t0, 1)
+    log(f"phase 13 (model exchanges across {world} ranks, "
+        f"{out['backend']}): {out['seconds']} s, segment_reduce launched "
+        f"{out['segment_reduce_launches']} times on the ranks")
+    return out
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -3716,6 +4473,13 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="the build and phase 12 (training) alone; no "
                     "result line")
+    ap.add_argument("--exchanges-only", action="store_true",
+                    help="the build and phase 13 (model exchanges across "
+                    "4 gloo ranks on one card) alone; no result line")
+    ap.add_argument("--exchanges-nccl", action="store_true",
+                    help="the build and phase 13 with one NCCL rank a card "
+                    "(several cards), MeshGraphNet at ogb_products' dims; "
+                    "no result line")
     ap.add_argument("--nccl-only", action="store_true",
                     help="phase 9's NCCL run alone (on a host of several "
                     "cards: one rank per card at scale 1000) with the "
@@ -3766,6 +4530,12 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"train": out}), flush=True)
         print(card, flush=True)
         return 0
+    if args.exchanges_only or args.exchanges_nccl:
+        out = exchange_phase(dev, nccl=args.exchanges_nccl)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"exchanges": out}, default=str), flush=True)
+        print(card, flush=True)
+        return 0
     if args.nccl_only:
         out = nccl_only(dev)
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -3789,6 +4559,7 @@ def main(argv: list[str]) -> int:
     lm = lm_phase(dev)
     gnn = gnn_phase(dev)
     train = train_phase(dev)
+    exchanges = exchange_phase(dev)
     for name, row in rows.items():
         row["launches"] = (full["launches"] | api_launches).get(name, 0)
         check(row["launches"] > 0, f"kernel {name} was not launched")
@@ -3796,15 +4567,18 @@ def main(argv: list[str]) -> int:
     seg["launches_by_path"] = {
         "kernel_api": seg["launches"],
         "gnn_recsys_forward": gnn["segment_reduce_launches"],
-        "gnn_recsys_train": train["segment_reduce_launches"]}
+        "gnn_recsys_train": train["segment_reduce_launches"],
+        "model_exchanges": exchanges["segment_reduce_launches"]}
     seg["launches"] += (gnn["segment_reduce_launches"]
-                        + train["segment_reduce_launches"])
+                        + train["segment_reduce_launches"]
+                        + exchanges["segment_reduce_launches"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     full = {k: full[k] for k in ("launches", "peak_bytes", "queries")}
     del sharded["store"]
     print(json.dumps({"full_scale": full, "matrix": matrix,
                       "serving": serving, "sharded": sharded,
-                      "ranks": ranks, "lm": lm, "gnn": gnn, "train": train}),
+                      "ranks": ranks, "lm": lm, "gnn": gnn, "train": train,
+                      "exchanges": exchanges}, default=str),
           flush=True)
     print(json.dumps({"stacked": stacked}), flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

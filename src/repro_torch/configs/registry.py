@@ -139,7 +139,9 @@ def _gnn_cfg_for_shape(arch: str, cfg, dims: dict, multi_pod: bool = False):
     if dims.get("shard_nodes") and hasattr(cfg, "node_spec"):
         # node dim sharded over every axis, blocks remat'd, activations
         # bf16, gathers/scatters via the MapSQ shuffle, one-shot edge sets
-        # streamed (graphcast only); `apply` refuses it on one device
+        # streamed (graphcast only); `apply(ranks=)` over a mesh of those
+        # axes runs it on a rank's shard (`data.graphs.shard_graph`), and
+        # without ranks on the whole graph
         extra = {}
         if hasattr(cfg, "edge_stream_chunks"):
             extra["edge_stream_chunks"] = 16

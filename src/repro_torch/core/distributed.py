@@ -27,6 +27,7 @@ runs inside a vmap.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import TYPE_CHECKING, ClassVar
@@ -84,6 +85,147 @@ def make_mesh(axis_sizes, axis_names) -> ShardMesh:
     return ShardMesh(tuple(int(s) for s in axis_sizes), tuple(axis_names))
 
 
+# -- differentiable collectives over one process group ------------------------
+#
+# The model code's exchanges (expert parallelism, the row-sharded lookup,
+# the GNN node shuffle) run these between ranks, and their gradients
+# through them. Every rank's loss counts once in the total, so the
+# backward of an exchange is the same exchange reversed, of an all-gather
+# a reduce-scatter (sum), and of an all-reduce (sum) an all-reduce.
+
+
+@contextlib.contextmanager
+def _host_staged(x: torch.Tensor, group):
+    """gloo moves a CUDA tensor through host memory and waits for the copy,
+    a host sync that sync debugging would refuse: it is allowed for the
+    collective alone. NCCL and CPU tensors run as they are."""
+    mode = torch.cuda.get_sync_debug_mode() if x.is_cuda else 0
+    if not mode or dist.get_backend(group) != "gloo":
+        yield
+        return
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def _all_to_all(x: torch.Tensor, group, in_splits, out_splits) -> torch.Tensor:
+    """One `all_to_all_single` of the rows of `x`: even chunks of
+    x.shape[0] / group size without splits, else `in_splits[j]` rows to
+    rank j and `out_splits[j]` rows back from it (host ints)."""
+    n = x.shape[0] if out_splits is None else int(sum(out_splits))
+    src = x.contiguous()
+    out = src.new_empty((n,) + tuple(src.shape[1:]))
+    with _host_staged(src, group):
+        dist.all_to_all_single(out, src, out_splits, in_splits, group=group)
+    return out
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, in_splits, out_splits):
+        ctx.group, ctx.splits = group, (in_splits, out_splits)
+        return _all_to_all(x, group, in_splits, out_splits)
+
+    @staticmethod
+    def backward(ctx, grad):
+        in_splits, out_splits = ctx.splits
+        back = _all_to_all(grad, ctx.group, out_splits, in_splits)
+        return back, None, None, None
+
+
+def exchange(x: torch.Tensor, group, in_splits=None, out_splits=None):
+    """All-to-all of the rows of `x` over `group`, with a gradient: rank
+    j gets chunk j (even chunks, or `in_splits[j]` rows) and the result
+    holds, in rank order, what every rank sent here (`out_splits[j]`
+    rows from rank j). Splits are host ints; bool rides as uint8."""
+    if x.dtype == torch.bool:
+        return exchange(x.view(torch.uint8), group, in_splits,
+                        out_splits).view(torch.bool)
+    return _Exchange.apply(x, group, in_splits, out_splits)
+
+
+def _gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's `x` concatenated along dim 0 in rank order."""
+    src = x.contiguous()
+    out = src.new_empty((dist.get_world_size(group) * src.shape[0],)
+                        + tuple(src.shape[1:]))
+    with _host_staged(src, group):
+        dist.all_gather_into_tensor(out, src, group=group)
+    return out
+
+
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather_rows(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter_rows(grad, ctx.group), None
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's rows on every rank, (n, ...) -> (size * n, ...) in
+    rank order; the backward is the reduce-scatter (sum) of the gradient,
+    each rank's use of the rows counted."""
+    return _GatherSum.apply(x, group)
+
+
+def reduce_scatter_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """(size * n, ...) -> (n, ...): rank j gets the sum over ranks of
+    their chunk j. An exchange and a sum, so the backward is the
+    all-gather of the gradient."""
+    size = dist.get_world_size(group)
+    got = exchange(x, group)
+    return got.reshape((size, x.shape[0] // size) + tuple(x.shape[1:])).sum(0)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        with _host_staged(out, group):
+            dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllReduceSum.apply(grad, ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's `x`, on every rank (a copy; `x` is left
+    as it is). The backward all-reduces the gradient."""
+    return _AllReduceSum.apply(x, group)
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        return _gather_rows(x.movedim(dim, 0), group).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise RuntimeError(
+            "gather_replicated carries no gradient: its output is "
+            "replicated over the group, and neither a reduce-scatter (too "
+            "large by the group size) nor the local slice (the upstream "
+            "replicated work would then miss the other slices) is the "
+            "gradient of a replicated loss; training across the expert "
+            "group is not ported yet (ROADMAP Queue 1 item 2.4)")
+
+
+def gather_replicated(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's `x` concatenated along `dim` in rank order, for an
+    output that every rank then uses alike (the MoE block's slices of a
+    replicated sequence). Forward only: a backward through it raises."""
+    return _GatherReplicated.apply(x, group, dim)
+
+
 # -- the exchanges ------------------------------------------------------------
 
 
@@ -97,10 +239,8 @@ def all_to_all(buf: torch.Tensor, mesh: ShardMesh, axis: str) -> torch.Tensor:
     if mesh.ranks is not None:
         # destination-major, so chunk j goes to the axis group's rank j
         # (its coordinate j), and chunk j back holds what rank j sent
-        send = buf.transpose(0, 1).contiguous()
-        recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send, group=mesh.ranks.group(axis))
-        return recv.transpose(0, 1)
+        send = buf.transpose(0, 1)
+        return exchange(send, mesh.ranks.group(axis)).transpose(0, 1)
     k = mesh.axis_names.index(axis)
     m = len(mesh.axis_sizes)
     lanes = buf.shape[0] // mesh.n_shards
@@ -117,8 +257,7 @@ def all_gather(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
         # over the world group, whose rank order is the flat mesh order;
         # bool rides as uint8 (a view), which every backend exchanges
         src = x.view(torch.uint8) if x.dtype == torch.bool else x
-        out = src.new_empty((s * src.shape[0], *src.shape[1:]))
-        dist.all_gather_into_tensor(out, src.contiguous())
+        out = _gather_rows(src, None)
         out = out.view(x.dtype) if x.dtype == torch.bool else out
         g = out.reshape(s, x.shape[0], *x.shape[1:]).transpose(0, 1)
         return g.reshape(x.shape[0], s * x.shape[1], *x.shape[2:])

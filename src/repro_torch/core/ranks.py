@@ -60,10 +60,36 @@ class RankContext:
         object.__setattr__(mesh, "ranks", self)
         self.mesh = mesh
 
-    def group(self, axis: str):
+    def group(self, axis: "str | tuple[str, ...]"):
         """The process group of this rank's line along mesh axis `axis`:
-        its ranks in order of their coordinate on that axis."""
+        its ranks in order of their coordinate on that axis. A tuple of
+        every axis, outermost first, is the world group, in flat mesh
+        order (the reference's `_flat_rank` over those axes); one axis
+        in a tuple is that axis."""
+        names = tuple(self.device_mesh.mesh_dim_names)
+        if isinstance(axis, tuple):
+            if axis == names:
+                return dist.group.WORLD
+            if len(axis) != 1:
+                raise ValueError(f"a group over {axis}: only one axis or "
+                                 f"every axis {names} in order")
+            axis = axis[0]
         return self.device_mesh.get_group(axis)
+
+    def axis_size(self, axis: "str | tuple[str, ...]") -> int:
+        """Ranks along `axis` (a tuple: the product over its axes)."""
+        axes = axis if isinstance(axis, tuple) else (axis,)
+        return math.prod(self.mesh.axis_size(a) for a in axes)
+
+    def axis_index(self, axis: "str | tuple[str, ...]") -> int:
+        """This rank's coordinate along `axis`; over a tuple of axes, its
+        flat (row-major) index, its rank in `group(axis)`."""
+        axes = axis if isinstance(axis, tuple) else (axis,)
+        index = 0
+        for a in axes:
+            index = (index * self.mesh.axis_size(a)
+                     + self.device_mesh.get_local_rank(a))
+        return index
 
     def broadcast(self, obj=None):
         """Rank 0's `obj` on every rank, over the control group (pickled;

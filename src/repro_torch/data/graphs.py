@@ -3,7 +3,8 @@ CSR-backed minibatch pipeline (real neighbor sampling, fanout 15-10).
 
 Edges are ALWAYS emitted sorted by dst — the MapSQ Sort phase executed once
 at data-load time, so device-side aggregation is a sorted segment reduce.
-Batches are numpy arrays; `to_device` makes them tensors.
+Batches are numpy arrays; `to_device` makes them tensors, and
+`shard_graph` makes one rank's shard of a node-sharded graph.
 """
 from __future__ import annotations
 
@@ -167,6 +168,80 @@ class MinibatchPipeline:
 
     def load_state_dict(self, st):
         self.seed, self.step = int(st["seed"]), int(st["step"])
+
+
+# GraphCast's edge sets in extras: name -> (src, dst, mask, edge arrays),
+# src into the mesh table and dst into the mesh ("mesh") or the grid
+# ("m2g"); the GraphBatch's own edges are the grid's ("edges") or, for
+# GraphCast, the g2m set (dst into the mesh)
+_EXTRA_EDGE_SETS = {
+    "mesh": ("mesh_src", "mesh_dst", "mesh_mask", ("mesh_edge_feat",)),
+    "m2g": ("m2g_src", "m2g_dst", "m2g_mask", ("m2g_feat",)),
+}
+_EDGE_EXTRAS = ("edge_feat", "g2m_feat")  # per edge of the GraphBatch
+_GRID_NODE_EXTRAS = ("targets", "labels", "train_mask", "positions",
+                     "species")
+_MESH_NODE_EXTRAS = ("mesh_feat_init",)
+
+
+def shard_graph(g: GraphBatch, ranks, stream_chunks: int = 0) -> GraphBatch:
+    """This rank's shard of the whole graph `g` (numpy arrays, e.g. from
+    `make_full_graph`), node-sharded over every mesh axis of `ranks`
+    (the registry's large-graph binding, `node_spec` = all axes), on the
+    ranks' device.
+
+    Every node table (the grid's and GraphCast's mesh) is cut into
+    contiguous row blocks of n / world, and every edge set (its ids, mask
+    and features) into contiguous slices of E / world; ids stay global.
+    The shuffle's routes of each edge set are planned here, once, and
+    carried in `extras["routes"]` (see `models/gnn/distributed.py`);
+    with `stream_chunks` (GraphCast's edge_stream_chunks), its g2m and m2g
+    sets are planned in as many chunks as the one-device stream cuts the
+    whole set into. Sizes that do not split raise."""
+    from repro_torch.models.gnn.distributed import plan_edges
+    from repro_torch.models.gnn.graphcast import _pick_chunks
+
+    axes = tuple(ranks.mesh.axis_names)
+    ndev, r = ranks.axis_size(axes), ranks.axis_index(axes)
+    dev = ranks.device
+
+    def block(a):
+        if a.shape[0] % ndev:
+            raise ValueError(f"{a.shape[0]} rows do not split over {ndev} "
+                             "ranks")
+        k = a.shape[0] // ndev
+        return torch.from_numpy(np.ascontiguousarray(a[r * k:(r + 1) * k])
+                                ).to(dev)
+
+    ex = g.extras
+    n = g.n_nodes
+    graphcast = "mesh_src" in ex
+    n_mesh = ex["mesh_feat_init"].shape[0] if graphcast else n
+
+    def chunks(e: int) -> int:
+        return _pick_chunks(e, stream_chunks) if stream_chunks else 1
+
+    # (name, src, dst, mask, src table rows, dst table rows, chunks)
+    sets = [("g2m" if graphcast else "edges", g.src, g.dst, g.edge_mask, n,
+             n_mesh, chunks(g.n_edges) if graphcast else 1)]
+    if graphcast:
+        sets += [("mesh", ex["mesh_src"], ex["mesh_dst"], ex["mesh_mask"],
+                  n_mesh, n_mesh, 1),
+                 ("m2g", ex["m2g_src"], ex["m2g_dst"], ex["m2g_mask"],
+                  n_mesh, n, chunks(ex["m2g_src"].shape[0]))]
+    routes = {name: plan_edges(src, dst, mask, n_src, n_dst, ranks, axes, c)
+              for name, src, dst, mask, n_src, n_dst, c in sets}
+    cut = set(_EDGE_EXTRAS + _GRID_NODE_EXTRAS + _MESH_NODE_EXTRAS)
+    for src, dst, mask, feats in _EXTRA_EDGE_SETS.values():
+        cut.update((src, dst, mask) + feats)
+    extras = {k: block(v) if k in cut else
+              torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+              for k, v in ex.items()}
+    extras["routes"] = routes
+    return GraphBatch(node_feat=block(g.node_feat), src=block(g.src),
+                      dst=block(g.dst), node_mask=block(g.node_mask),
+                      edge_mask=block(g.edge_mask),
+                      graph_ids=block(g.graph_ids), extras=extras)
 
 
 def to_device(g: GraphBatch, device=None) -> GraphBatch:

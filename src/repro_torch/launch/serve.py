@@ -16,7 +16,15 @@ sparql — stand up the MapSQ engine + micro-batching server over LUBM data
          on the CPU; `--backend gloo` lets the ranks share one card).
 lm     — reduced-config LM generation (prefill + greedy decode loop) of
          `--arch` (default gemma3-1b), seeded random weights, on the card
-         or, with `--device cpu`, on the CPU.
+         or, with `--device cpu`, on the CPU. Started as N ranks by a
+         launcher, the MoE archs run expert-parallel over the N ranks
+         (ep = N, as the reference serves with model = device count):
+
+           python -m torch.distributed.run --standalone --nproc-per-node N \\
+               -m repro_torch.launch.serve --mode lm --arch olmoe-1b-7b \\
+               [--device cpu]
+
+         every rank generates, rank 0 prints.
 """
 from __future__ import annotations
 
@@ -105,7 +113,11 @@ def serve_sparql(scale: int, n_queries: int, device: str | None = None,
             ranks.close()
 
 
-def serve_lm(arch: str, device: str | None = None) -> None:
+def serve_lm(arch: str, device: str | None = None,
+             backend: str | None = None) -> None:
+    """Generate 16 tokens for two 4-token prompts. Under a launcher
+    (WORLD_SIZE set) the experts shard over every rank (mesh (1, world)
+    over ("data", "model")); rank 0 prints."""
     import importlib
 
     import numpy as np
@@ -117,15 +129,31 @@ def serve_lm(arch: str, device: str | None = None) -> None:
     from repro_torch.models import transformer as T
     from repro_torch.serve.decode import Generator
 
-    dev = resolve_device(device)
-    cfg = reduced_lm(importlib.import_module(ARCHS[arch]).CONFIG)
-    # drawn on the CPU, so the card and the CPU serve the same weights
-    params = T.init_params(torch.Generator().manual_seed(0), cfg)
-    gen = Generator(cfg, params, device=dev, max_len=64)
-    prompts = np.arange(8, dtype=np.int32).reshape(2, 4) % cfg.vocab
-    out = gen.generate(prompts, n_new=16)
-    print("generated:", out.shape)
-    print(out)
+    ranks = None
+    if "WORLD_SIZE" in os.environ:
+        from repro_torch.core.ranks import init_ranks
+
+        ranks = init_ranks(device=device, backend=backend,
+                           axis_sizes=(1, int(os.environ["WORLD_SIZE"])),
+                           axis_names=("data", "model"))
+    try:
+        dev = ranks.device if ranks is not None else resolve_device(device)
+        cfg = reduced_lm(importlib.import_module(ARCHS[arch]).CONFIG)
+        # drawn on the CPU, so the card and the CPU serve the same weights
+        params = T.init_params(torch.Generator().manual_seed(0), cfg,
+                               ranks=ranks)
+        gen = Generator(cfg, params, device=dev, max_len=64, ranks=ranks)
+        prompts = np.arange(8, dtype=np.int32).reshape(2, 4) % cfg.vocab
+        out = gen.generate(prompts, n_new=16)
+        if ranks is None or ranks.rank == 0:
+            if ranks is not None:
+                print(f"expert-parallel over {ranks.world_size} ranks, "
+                      f"backend {ranks.backend}")
+            print("generated:", out.shape)
+            print(out)
+    finally:
+        if ranks is not None:
+            ranks.close()
 
 
 def main() -> None:
@@ -149,7 +177,7 @@ def main() -> None:
                          "NCCL on cards, gloo on the CPU)")
     args = ap.parse_args()
     if args.mode == "lm":
-        serve_lm(args.arch, args.device)
+        serve_lm(args.arch, args.device, args.backend)
     else:
         serve_sparql(args.scale, args.n_queries, args.device, args.shards,
                      args.backend)

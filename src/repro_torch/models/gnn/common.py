@@ -6,9 +6,21 @@ Aggregation is edge-index gathers + a sorted segment sum over dst-sorted
 edges: exactly the MapSQ reduce with node ids as join keys. On a CUDA
 tensor every sorted aggregation launches `kernels.segment_reduce`.
 
-One device only: node sharding (`node_spec`) and the MapSQ shuffle
-gather/scatter across devices (`models/gnn/distributed.py` in the
-reference) raise NotImplementedError.
+Node sharding: with `node_spec` (the mesh axes the node dim shards over)
+and a rank context `ranks`, each rank holds the row block of every node
+table and a contiguous slice of every edge set (`data.graphs.
+shard_graph`). The node ops then do what GSPMD does for the reference,
+or, with the shuffle, route through `models/gnn/distributed.py`:
+
+  * take_nodes — all-gather the node table and index it; with the
+    shuffle, the owners serve the rows over one exchange;
+  * aggregate — a local sorted sum over every node, then a
+    reduce-scatter; with the shuffle (`aggregate_nodes`), the messages
+    go to their owners and one sorted sum reduces them there.
+
+Without a rank context (or at one rank) the node dim is whole, and
+`node_spec` and the shuffle are the plain path, as the reference on a
+(1, 1) mesh.
 """
 from __future__ import annotations
 
@@ -19,9 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import distributed as D
 from repro_torch.core.segments import (
     segment_softmax, segment_sum, sorted_segment_sum,
 )
+from repro_torch.models.gnn.distributed import gather_nodes, scatter_add_nodes
 
 
 class GraphBatch(NamedTuple):
@@ -50,61 +64,85 @@ class GraphBatch(NamedTuple):
         return self.src.shape[0]
 
 
-def check_one_device(node_spec: tuple[str, ...], shuffle: bool = False) -> None:
-    """Refuse what needs several devices: node sharding and the shuffle
-    gather/scatter (ROADMAP Queue 1 item 2.3)."""
-    if node_spec or shuffle:
-        raise NotImplementedError(
-            "node sharding (node_spec) and the shuffle gather run across "
-            f"devices, which this port does not yet do; got node_spec="
-            f"{node_spec!r}, shuffle={shuffle} (ROADMAP Queue 1 item 2.3)"
-        )
+def _sharded(node_spec: tuple[str, ...], ranks) -> bool:
+    return bool(node_spec) and ranks is not None
 
 
 def aggregate(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int,
               edge_mask: torch.Tensor | None = None,
               sorted_edges: bool = True,
-              node_spec: tuple[str, ...] = ()) -> torch.Tensor:
+              node_spec: tuple[str, ...] = (), *,
+              ranks=None) -> torch.Tensor:
     """Sum messages into destination nodes (the MapSQ reduce).
 
     dst must be sorted ascending when sorted_edges=True (our pipelines sort
     at load time): the sorted segment sum, the kernel on the card. With
-    sorted_edges=False, a plain scatter-add. Ids outside [0, n_nodes) drop
-    out.
+    sorted_edges=False, a plain scatter-add. Ids outside the node table
+    drop out.
+
+    Node-sharded (`node_spec` and `ranks`): `messages` / `dst` are this
+    rank's edge slice with global dst ids and `n_nodes` this rank's row
+    block; every rank sums its messages over every node, and a
+    reduce-scatter leaves each rank its block's sums.
     """
     if edge_mask is not None:
         messages = torch.where(edge_mask[:, None], messages, 0)
+    n_sum = n_nodes
+    if _sharded(node_spec, ranks):
+        n_sum = n_nodes * ranks.axis_size(node_spec)
     if sorted_edges:
-        out = sorted_segment_sum(messages, dst, n_nodes)
+        out = sorted_segment_sum(messages, dst, n_sum)
     else:
-        out = segment_sum(messages, dst, n_nodes)
+        out = segment_sum(messages, dst, n_sum)
+    if n_sum != n_nodes:
+        out = D.reduce_scatter_rows(out, ranks.group(node_spec))
     return constrain_nodes(out, node_spec)
 
 
 def constrain_nodes(x: torch.Tensor, node_spec: tuple[str, ...]) -> torch.Tensor:
-    """Shard dim 0 (nodes) over `node_spec` axes: a no-op when unset."""
-    check_one_device(node_spec)
+    """Shard dim 0 (nodes) over `node_spec` axes: the reference's sharding
+    constraint. A node-sharded rank holds its row block already, so this
+    is the identity."""
     return x
+
+
+def edge_routes(g: GraphBatch, name: str, node_spec, shuffle: bool, ranks):
+    """The shuffle's routes of edge set `name` on this rank, planned when
+    the graph was sharded (`data.graphs.shard_graph`); None off the
+    shuffle."""
+    if not (shuffle and _sharded(node_spec, ranks)):
+        return None
+    return g.extras["routes"][name]
 
 
 def take_nodes(x: torch.Tensor, ids: torch.Tensor, edge_mask: torch.Tensor,
                node_spec: tuple[str, ...] = (),
-               shuffle: bool = False) -> torch.Tensor:
-    """x[ids], by local indexing; node sharding and the shuffle gather
-    (several devices) raise."""
-    check_one_device(node_spec, shuffle)
-    return x[ids]
+               shuffle: bool = False, *, ranks=None,
+               route=None) -> torch.Tensor:
+    """x[ids]. Node-sharded (`node_spec` and `ranks`; x this rank's row
+    block, ids global): the node table all-gathered and indexed, or with
+    `shuffle` the rows served by their owners along `route` (a
+    `distributed.GatherRoute` of these ids)."""
+    if not _sharded(node_spec, ranks):
+        return x[ids]
+    if shuffle:
+        return gather_nodes(x, route)
+    return D.all_gather_rows(x, ranks.group(node_spec))[ids]
 
 
 def aggregate_nodes(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int,
                     edge_mask: torch.Tensor,
                     node_spec: tuple[str, ...] = (),
-                    shuffle: bool = False) -> torch.Tensor:
-    """aggregate() in the reference's form that can route through the
-    shuffle scatter; node sharding and the shuffle (several devices)
-    raise."""
-    check_one_device(node_spec, shuffle)
-    return aggregate(messages, dst, n_nodes, edge_mask)
+                    shuffle: bool = False, *, ranks=None,
+                    route=None) -> torch.Tensor:
+    """aggregate() that can route through the shuffle scatter instead (same
+    contract): node-sharded with `shuffle`, the messages go to the owners
+    of their dst along `route` (a `distributed.ScatterRoute`)."""
+    if shuffle and _sharded(node_spec, ranks):
+        return scatter_add_nodes(
+            torch.where(edge_mask[:, None], messages, 0), route)
+    return aggregate(messages, dst, n_nodes, edge_mask, node_spec=node_spec,
+                     ranks=ranks)
 
 
 def aggregate_softmax(scores: torch.Tensor, values: torch.Tensor,

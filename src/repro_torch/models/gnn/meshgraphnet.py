@@ -19,11 +19,11 @@ class MGNConfig:
     d_node_in: int = 8
     d_edge_in: int = 4
     d_out: int = 3
-    # axes the node dim shards over on large graphs (several devices only)
+    # axes the node dim shards over on large graphs (with a rank context)
     node_spec: tuple[str, ...] = ()
     remat: bool = False  # rematerialize each block in a training backward
     compute_dtype: object = None  # a torch dtype (bf16 on large graphs)
-    shuffle_gather: bool = False  # MapSQ shuffle gather/scatter (several devices)
+    shuffle_gather: bool = False  # MapSQ shuffle gather/scatter across ranks
 
 
 def _mlp_sizes(cfg: MGNConfig, d_in: int) -> list[int]:
@@ -58,32 +58,42 @@ def params_from_numpy(tree: dict, cfg: MGNConfig, device=None) -> dict:
                              resolve_device(device))
 
 
-def _block(p: dict, x: torch.Tensor, e: torch.Tensor, g: C.GraphBatch):
+def _block(p: dict, x: torch.Tensor, e: torch.Tensor, g: C.GraphBatch,
+           cfg: MGNConfig, ranks):
     """One residual edge / node update. Returns (x, e)."""
     dt = x.dtype
-    xs = C.take_nodes(x, g.src, g.edge_mask)
-    xd = C.take_nodes(x, g.dst, g.edge_mask)
+    ns, sg = cfg.node_spec, cfg.shuffle_gather
+    r = C.edge_routes(g, "edges", ns, sg, ranks)
+    xs = C.take_nodes(x, g.src, g.edge_mask, ns, sg, ranks=ranks,
+                      route=r and r.src[0])
+    xd = C.take_nodes(x, g.dst, g.edge_mask, ns, sg, ranks=ranks,
+                      route=r and r.dst[0])
     e_in = torch.cat([e, xs, xd], dim=-1)
     e = e + C.layer_norm(C.mlp(p["edge"], e_in)).to(dt)
-    agg = C.aggregate_nodes(e, g.dst, g.n_nodes, g.edge_mask)
+    agg = C.aggregate_nodes(e, g.dst, g.n_nodes, g.edge_mask, ns, sg,
+                            ranks=ranks, route=r and r.scatter[0])
     x = x + C.layer_norm(
         C.mlp(p["node"], torch.cat([x, agg], dim=-1))).to(dt)
     return x, e
 
 
-def apply(params: dict, g: C.GraphBatch, cfg: MGNConfig) -> torch.Tensor:
-    C.check_one_device(cfg.node_spec, cfg.shuffle_gather)
+def apply(params: dict, g: C.GraphBatch, cfg: MGNConfig, *,
+          ranks=None) -> torch.Tensor:
+    """Node outputs (N, d_out). With `ranks` and `cfg.node_spec`, `g` is
+    this rank's shard (`data.graphs.shard_graph`) and so are the
+    outputs: its row block of the nodes."""
     dt = cfg.compute_dtype or g.node_feat.dtype
     x = C.layer_norm(C.mlp(params["enc_node"], g.node_feat.to(dt))).to(dt)
     e = C.layer_norm(C.mlp(params["enc_edge"],
                            g.extras["edge_feat"].to(dt))).to(dt)
     blk = C.remat(_block, cfg.remat)
     for p in params["blocks"]:
-        x, e = blk(p, x, e, g)
+        x, e = blk(p, x, e, g, cfg, ranks)
     out = C.mlp(params["dec"], x)
     return torch.where(g.node_mask[:, None], out, 0.0)
 
 
-def loss_fn(params, g: C.GraphBatch, cfg: MGNConfig):
-    pred = apply(params, g, cfg)
+def loss_fn(params, g: C.GraphBatch, cfg: MGNConfig, *, ranks=None):
+    """The masked MSE; with `ranks`, over this rank's nodes."""
+    pred = apply(params, g, cfg, ranks=ranks)
     return C.mse_loss(pred, g.extras["targets"], g.node_mask)

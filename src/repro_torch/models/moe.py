@@ -12,11 +12,14 @@ The MoE token→expert exchange IS the paper's MapReduce join:
            back on the token side is the segment-sum reduce.
 
 Two realizations, one logical join, as in `repro.models.moe`:
-  * ``moe_ffn_ep_local`` — the sort-based path for prefill, here at one
-    expert shard (ep = 1); the exchange over ranks comes with expert
-    parallelism.
+  * ``moe_ffn_ep_local`` — the sort-based path for training and prefill:
+    each rank of the expert group (a `RankContext` axis, one process per
+    expert shard) routes its tokens to the experts' owners through
+    `core.distributed.exchange` and back; at one shard (no rank context)
+    the exchanges are the identity.
   * ``moe_ffn_onehot`` — a GShard-style one-hot-dispatch einsum used at
-    decode time, where token counts are tiny.
+    decode time, where token counts are tiny; across ranks each rank
+    dispatches to its own experts and the partial outputs are summed.
 
 Expert counts that don't divide the expert axis are padded to the next
 multiple; padded experts get -inf router logits and are never selected.
@@ -27,12 +30,16 @@ sort.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import TYPE_CHECKING, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import distributed as D
 from repro_torch.core.segments import segment_offsets_from_sorted
+
+if TYPE_CHECKING:
+    from repro_torch.core.ranks import RankContext
 
 
 class MoEParams(NamedTuple):
@@ -134,26 +141,44 @@ def _expert_swiglu(p: MoEParams, xe: torch.Tensor, dtype) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Sort-based expert path (prefill), one expert shard
+# Sort-based expert path (prefill): the two shuffles over the expert group
 # ---------------------------------------------------------------------------
 
-def moe_ffn_ep_local(p: MoEParams, x: torch.Tensor, st: MoESettings, *,
-                     ep: int = 1) -> torch.Tensor:
-    """The sort-based MoE layer at one expert shard.
+def expert_group(ranks: "RankContext | None", axis: str):
+    """(ep, this rank's coordinate, process group) of the expert axis; one
+    shard (1, 0, None) without a rank context."""
+    if ranks is None:
+        return 1, 0, None
+    return ranks.axis_size(axis), ranks.axis_index(axis), ranks.group(axis)
 
-    x: (B, S, D) — every token; p: every expert (we_*: (e_pad, ...)).
-    The two shuffles of the expert-parallel form are the identity here:
-    with `ep` ranks each would be an all_to_all over the expert group,
-    which this port does not run yet (`ep` > 1 raises).
+
+def moe_ffn_ep_local(p: MoEParams, x: torch.Tensor, st: MoESettings, *,
+                     ranks: "RankContext | None" = None,
+                     expert_axis: str = "model",
+                     count_dropped: bool = False):
+    """The expert-parallel MoE layer on this rank (the reference's
+    shard_map body).
+
+    x: (B, S_loc, D) — this rank's tokens; p: this rank's experts
+    (we_*: (e_local, ...)), the router (D, e_pad) whole. `ranks` gives
+    the expert group along `expert_axis` (ep ranks); without it the layer
+    runs at one shard (ep = 1) and the two shuffles are the identity.
+    Assignments past a destination rank's `chip_cap` or an expert's
+    `expert_cap` are dropped, the same ones as the reference drops: the
+    route order is stable per rank and the expert side sorts received
+    rows stably in (source rank, slot) order. With `count_dropped` the
+    layer returns (y, n): n is their number on this rank (sender and
+    expert side), a 0-d int64 tensor on x's device (no host sync).
     """
-    if ep != 1:
-        raise NotImplementedError(
-            f"moe_ffn_ep_local runs at one expert shard; got ep={ep}"
-        )
+    ep, er, group = expert_group(ranks, expert_axis)
     b, s_loc, d = x.shape
     t_my = b * s_loc
-    e_pad = st.e_pad(ep)
+    e_pad = p.router.shape[-1]
     e_local = e_pad // ep
+    if p.we_gate.shape[0] * ep != e_pad:
+        raise ValueError(
+            f"{p.we_gate.shape[0]} experts on each of {ep} expert shard(s) "
+            f"for a router over {e_pad}: pass the ranks whose shard they are")
     k = st.top_k
     dev = x.device
 
@@ -168,23 +193,28 @@ def moe_ffn_ep_local(p: MoEParams, x: torch.Tensor, st: MoESettings, *,
     a_gate = gate_vals.reshape(-1)
     n_assign = a_e.shape[0]
 
-    # Sort + bucketize by destination shard; the shuffle is the identity.
+    # Sort + bucketize by destination rank, shuffle (all_to_all).
     chip_cap = _round8(int(n_assign / ep * st.capacity_factor) + 8)
     dest = torch.div(a_e, e_local, rounding_mode="floor")
     every = torch.ones((n_assign,), dtype=torch.bool, device=dev)
     order, slot, ok = route_plan(dest, every, ep, chip_cap)
-    recv_x = scatter_to_buckets(x_my[a_tok.long()], order, slot, ok, ep, chip_cap)
-    recv_e = scatter_to_buckets(a_e, order, slot, ok, ep, chip_cap)
-    recv_v = scatter_to_buckets(
-        torch.ones((n_assign,), dtype=torch.int32, device=dev),
+    send_x = scatter_to_buckets(x_my[a_tok.long()], order, slot, ok, ep,
+                                chip_cap)
+    # expert id and valid flag ride together: one int32 exchange
+    send_meta = scatter_to_buckets(
+        torch.stack([a_e, torch.ones_like(a_e)], dim=1),
         order, slot, ok, ep, chip_cap,
     )
+    recv_x, recv_meta = send_x, send_meta
+    if group is not None:
+        recv_x = D.exchange(send_x.reshape(ep * chip_cap, d), group)
+        recv_meta = D.exchange(send_meta.reshape(ep * chip_cap, 2), group)
 
     # Expert-side Reduce: second sort groups rows into per-expert segments.
     n_recv = ep * chip_cap
     rx = recv_x.reshape(n_recv, d)
-    re_loc = recv_e.reshape(-1)  # this shard's first expert is 0
-    rv = recv_v.reshape(-1) > 0
+    re_loc = recv_meta[..., 0].reshape(-1) - er * e_local
+    rv = recv_meta[..., 1].reshape(-1) > 0
     expert_cap = _round8(int(n_assign / e_local * st.capacity_factor) + 8)
     order2, slot2, ok2 = route_plan(re_loc, rv, e_local, expert_cap)
     ebuf = scatter_to_buckets(rx, order2, slot2, ok2, e_local, expert_cap)
@@ -192,14 +222,21 @@ def moe_ffn_ep_local(p: MoEParams, x: torch.Tensor, st: MoESettings, *,
     # Grouped GEMM over contiguous expert segments (SwiGLU experts).
     eout = _expert_swiglu(p, ebuf, x.dtype).to(x.dtype)
 
-    # Return trip: un-bucket on the expert side, un-bucket at the sender,
-    # weighted segment-sum combine over each token's k slots (a_tok repeats
-    # each token k times, so its slots are one contiguous segment).
+    # Return trip: un-bucket on the expert side, shuffle back, un-bucket at
+    # the sender, weighted segment-sum combine over each token's k slots
+    # (a_tok repeats each token k times, so its slots are one contiguous
+    # segment).
     res_recv = gather_from_buckets(eout, order2, slot2, ok2, n_recv)
-    back = res_recv.reshape(ep, chip_cap, d)
+    back = res_recv
+    if group is not None:
+        back = D.exchange(res_recv, group)
+    back = back.reshape(ep, chip_cap, d)
     res_asn = gather_from_buckets(back, order, slot, ok, n_assign)
     combined = (res_asn.float() * a_gate[:, None]).reshape(t_my, k, d).sum(dim=1)
-    return combined.to(x.dtype).reshape(b, s_loc, d)
+    y = combined.to(x.dtype).reshape(b, s_loc, d)
+    if count_dropped:
+        return y, (n_assign - ok.sum()) + (rv.sum() - ok2.sum())
+    return y
 
 
 def _round8(n: int) -> int:
@@ -211,13 +248,22 @@ def _round8(n: int) -> int:
 # ---------------------------------------------------------------------------
 
 def moe_ffn_onehot(p: MoEParams, x: torch.Tensor, st: MoESettings, e_pad: int,
-                   capacity: int | None = None) -> torch.Tensor:
+                   capacity: int | None = None, *,
+                   ranks: "RankContext | None" = None,
+                   expert_axis: str = "model") -> torch.Tensor:
     """GShard-style dispatch/combine einsum MoE for small T (decode).
 
     x: (B, S, D) with B*S small. The (T, E, C) dispatch tensor is the dense
     materialization of the same token↔expert join; it is only affordable
     because T is tiny at decode time. Assignments past an expert's
     `capacity`, counted over the flattened (T·k) order, are dropped.
+
+    With `ranks`, x is the same on every rank of the expert group and p
+    holds this rank's experts: each rank dispatches to its own expert
+    columns only (an expert's slots are a running count over its own
+    column, so they do not depend on the other ranks' experts), and the
+    partial outputs are summed over the group (an all-reduce) before the
+    cast to x's type.
     """
     b, s, d = x.shape
     t = b * s
@@ -230,8 +276,12 @@ def moe_ffn_onehot(p: MoEParams, x: torch.Tensor, st: MoESettings, e_pad: int,
     # position of each assignment within its expert (running count over T*k)
     flat = onehot.reshape(t * k, e_pad)
     pos = (torch.cumsum(flat, dim=0, dtype=torch.int32) - flat).reshape(t, k, e_pad)
+    ep, er, group = expert_group(ranks, expert_axis)
+    e_local = e_pad // ep
+    mine = slice(er * e_local, (er + 1) * e_local)
+    onehot, pos = onehot[..., mine], pos[..., mine]
     within = pos < cap
-    disp = (onehot * within).to(x.dtype)  # (T, k, E)
+    disp = (onehot * within).to(x.dtype)  # (T, k, E_local)
     # dispatch tensor (T, E, C): 1 where token t goes to expert e slot c
     posc = torch.sum(pos * onehot, dim=-1)  # (T, k) slot per assignment
     slot_1h = one_hot(posc, cap, x.dtype)  # (T, k, C); 0 past the capacity
@@ -241,6 +291,8 @@ def moe_ffn_onehot(p: MoEParams, x: torch.Tensor, st: MoESettings, e_pad: int,
     comb = torch.einsum("tke,tkc->tec", disp * gate_vals[..., None].to(x.dtype),
                         slot_1h).float()
     y = torch.einsum("tec,ecd->td", comb, eo)
+    if group is not None:
+        y = D.all_reduce_sum(y, group)
     return y.to(x.dtype).reshape(b, s, d)
 
 

@@ -2,20 +2,31 @@
 deep MLP. The embedding LOOKUP is the hot path: an EmbeddingBag built from
 a clipped gather + the sorted segment sum (the kernel on the card).
 
-One device: the reference's row-sharded table and its shuffle lookup
-(`param_specs`, `make_sharded_lookup`) run across devices and are not
-ported; a `lookup_fn(table, flat_ids) -> rows` of the caller's own may
-still be passed.
+Across ranks the table is row-sharded over the "model" axis
+(`param_specs`, `shard_params`) and the lookup is the MapSQ shuffle
+(`make_sharded_lookup`): each id goes to the rank that owns its row, the
+row is gathered there and sent back, one exchange each way. The lookup
+always returns `table[ids]`: the exchanges are sized exactly from the
+per-rank counts (exchanged first), so nothing overflows and nothing is
+dropped, where the reference's fixed `cap` returns zero rows past it.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import distributed as D
 from repro_torch.core.segments import sorted_segment_sum
 from repro_torch.models.gnn.common import init_mlp, mlp, normal, tree_from_numpy
+
+if TYPE_CHECKING:
+    from repro_torch.core.ranks import RankContext
+
+# the mesh axis the table's rows shard over (the reference's "model")
+TABLE_AXIS = "model"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +64,42 @@ def params_from_numpy(tree: dict, cfg: DeepFMConfig, device=None) -> dict:
                            resolve_device(device))
 
 
+def param_specs(cfg: DeepFMConfig) -> dict:
+    """Each leaf's mesh axis per dim (the reference's PartitionSpecs as
+    tuples): the tables row-sharded over "model", the rest replicated."""
+    return {
+        "table": (TABLE_AXIS, None),  # row-sharded: the huge array
+        "fm_w": (TABLE_AXIS, None),
+        "mlp": [{"w": (None, None), "b": (None,)} for _ in
+                range(len(cfg.mlp_dims) + 1)],
+        "bias": (),
+    }
+
+
+def shard_params(params: dict, ranks: "RankContext",
+                 cfg: DeepFMConfig) -> dict:
+    """Whole params as this rank's, by `param_specs`: the rows of the
+    tables that its coordinate on "model" owns (a contiguous block of
+    total_rows / model rows), every other leaf as it is."""
+    n, r = ranks.axis_size(TABLE_AXIS), ranks.axis_index(TABLE_AXIS)
+    specs = param_specs(cfg)
+
+    def cut(a, spec):
+        if isinstance(spec, list):
+            return [cut(x, s) for x, s in zip(a, spec)]
+        if isinstance(spec, dict):
+            return {k: cut(a[k], spec[k]) for k in spec}
+        if spec and spec[0] == TABLE_AXIS:
+            if a.shape[0] % n:
+                raise ValueError(f"{a.shape[0]} rows do not split over {n} "
+                                 "ranks")
+            rows = a.shape[0] // n
+            return a[r * rows:(r + 1) * rows]
+        return a
+
+    return cut(params, specs)
+
+
 # ---------------------------------------------------------------------------
 # EmbeddingBag
 # ---------------------------------------------------------------------------
@@ -63,6 +110,50 @@ def embedding_bag_local(table: torch.Tensor, flat_ids: torch.Tensor,
     (bag_ids sorted, int32 on the card)."""
     rows = table[flat_ids.clamp(0, table.shape[0] - 1)]
     return sorted_segment_sum(rows, bag_ids, n_bags)
+
+
+def _sharded_lookup_local(tables, ids: torch.Tensor, *,
+                          ranks: "RankContext"):
+    """This rank's part of the sharded lookup: route each of its ids to
+    the rank that owns the row, gather there, route the rows back.
+
+    tables: a tuple of this rank's row blocks (rows [r R_local, (r + 1)
+    R_local) of each table; DeepFM's forward passes the table and fm_w,
+    read in one route); ids: (n,), this rank's slice of the flattened id
+    stream, clipped to the tables as the local path clips. Returns a
+    tuple of (n, D_t) = table_t[ids], exactly. Per-rank counts are
+    exchanged first and read on the host (one sync a call), so both
+    exchanges move exactly the rows there are; every table's rows travel
+    back in one exchange. Their backward is the reverse exchange, and
+    each table's gradient the scatter-add of its rows' gradients.
+    """
+    ep, er = ranks.axis_size(TABLE_AXIS), ranks.axis_index(TABLE_AXIS)
+    group = ranks.group(TABLE_AXIS)
+    r_local = tables[0].shape[0]
+    flat = ids.reshape(-1).long().clamp(0, ep * r_local - 1)
+    owner = torch.div(flat, r_local, rounding_mode="floor")
+    order = torch.sort(owner, stable=True).indices
+    send_counts = torch.bincount(owner, minlength=ep)
+    recv_counts = D.exchange(send_counts, group)
+    counts = torch.stack([send_counts, recv_counts]).tolist()
+    want = D.exchange(flat[order], group, counts[0], counts[1])
+    local = want - er * r_local
+    rows = torch.cat([t[local] for t in tables], dim=1)
+    back = D.exchange(rows, group, counts[1], counts[0])
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    return back[inv].split([t.shape[1] for t in tables], dim=1)
+
+
+def make_sharded_lookup(ranks: "RankContext"):
+    """lookup_fn(tables, flat_ids) -> (rows of each table) for `forward`,
+    `bce_loss` and `retrieval_scores`: the tables row-sharded over the
+    "model" axis of `ranks` (`shard_params`), each rank passing its own
+    slice of the id stream."""
+    def lookup(tables, flat_ids):
+        return _sharded_lookup_local(tables, flat_ids, ranks=ranks)
+
+    return lookup
 
 
 # ---------------------------------------------------------------------------
@@ -87,8 +178,7 @@ def _lookup(params, ids, cfg, lookup_fn):
         emb = embedding_bag_local(params["table"], flat, bags, flat.shape[0])
         fm1 = embedding_bag_local(params["fm_w"], flat, bags, flat.shape[0])
     else:
-        emb = lookup_fn(params["table"], flat)
-        fm1 = lookup_fn(params["fm_w"], flat)
+        emb, fm1 = lookup_fn((params["table"], params["fm_w"]), flat)
     return emb.reshape(b, f, cfg.embed_dim), fm1.reshape(b, f)
 
 
@@ -116,15 +206,20 @@ def retrieval_scores(params: dict, user_ids: torch.Tensor,
 
     user_ids: (1, n_sparse); cand_ids: (n_cand, n_item_fields).
     Item tower = sum of item-field embeddings; score = item · user.
-    The user tower is a handful of rows — always the local path.
+    The user tower is a handful of rows: the local path, or with a
+    sharded table (`lookup_fn` of `make_sharded_lookup`) the same lookup,
+    since this rank holds only its rows.
     """
-    emb_u, _ = _lookup(params, user_ids, cfg, None)
-    u = emb_u[0].sum(dim=0)  # (D,)
+    if lookup_fn is None:
+        emb_u, _ = _lookup(params, user_ids, cfg, None)
+    else:
+        (emb_u,) = lookup_fn((params["table"],), _flat_ids(user_ids, cfg))
+    u = emb_u.reshape(-1, cfg.embed_dim).sum(dim=0)  # (D,)
     b, f = cand_ids.shape
     flat = _flat_ids(cand_ids, cfg)
     if lookup_fn is None:
         rows = params["table"][flat.clamp(0, cfg.total_rows - 1)]
     else:
-        rows = lookup_fn(params["table"], flat)
+        (rows,) = lookup_fn((params["table"],), flat)
     items = rows.reshape(b, f, cfg.embed_dim).sum(dim=1)  # (n_cand, D)
     return items @ u

@@ -7,14 +7,17 @@ over per-layer views of them (one `unbind` per leaf and call, so a
 backward stacks each leaf's gradient once); attention is chunked
 online-softmax (never materializes S×S); MoE layers use the MapSQ
 sort-based dispatch (models/moe.py) at train / prefill and the one-hot
-einsum at decode. With `cfg.remat` a training forward rematerializes each
-block in the backward (`torch.utils.checkpoint`, as the reference's
+einsum at decode, their experts sharded over the ranks of a
+`RankContext`'s "model" axis when one is passed (expert parallelism:
+`init_params(ranks=)` or `shard_params`, then `ranks=` to the forward and
+the serving steps). With `cfg.remat` a training forward rematerializes
+each block in the backward (`torch.utils.checkpoint`, as the reference's
 `jax.checkpoint` of the scanned block).
 
 Training: `ce_loss` / `chunked_ce_loss`, `make_loss_fn` and
 `make_train_step` (gradients by `torch.autograd.grad` over the param
-leaves, optional micro-batch accumulation in float32, then AdamW). One
-device: no mesh, no sharding constraints.
+leaves, optional micro-batch accumulation in float32, then AdamW), on one
+device: the train step across ranks is not ported yet.
 
 Serving: `make_prefill_step` runs the prompt once and exports the post-RoPE
 K/V of every layer; `make_serve_step` decodes one token per sequence
@@ -28,16 +31,23 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as TT
+from repro_torch.core import distributed as D
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
+
+if TYPE_CHECKING:
+    from repro_torch.core.ranks import RankContext
+
+# the mesh axis the experts shard over (the reference's "model" axis)
+EXPERT_AXIS = "model"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,13 +119,19 @@ class TransformerConfig:
 # ---------------------------------------------------------------------------
 
 def init_params(gen: torch.Generator | None, cfg: TransformerConfig,
-                ep: int = 1, *, device=None) -> dict:
+                ep: int = 1, *, device=None,
+                ranks: "RankContext | None" = None) -> dict:
     """Seeded random weights: `dense_init`'s scaled normal drawn from `gen`,
     on its device. `gen=None` draws on `device` from torch's default
     generator (`device="meta"`: the shapes alone). `ep` = size of the
     expert axis (for expert padding). One layer's experts are drawn and
-    copied to every layer, as in the reference."""
+    copied to every layer, as in the reference. With `ranks`, ep is the
+    size of their expert axis ("model") and only this rank's experts are
+    kept (`shard_params` of the whole draw, which is made for one layer
+    only)."""
     device = gen.device if gen is not None else torch.device(device)
+    if ranks is not None:
+        ep = ranks.axis_size(EXPERT_AXIS)
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     lyr = cfg.n_layers
     dt = cfg.dtype
@@ -146,9 +162,11 @@ def init_params(gen: torch.Generator | None, cfg: TransformerConfig,
     }
     if cfg.is_moe:
         moe0 = M.init_moe_params(gen, d, cfg.moe_settings(), ep, dt, device)
+        moe0 = {k: _local_experts(k, a, ranks, 0)
+                for k, a in moe0._asdict().items()}
         blocks["moe"] = {
             k: a.unsqueeze(0).expand((lyr,) + a.shape).clone()
-            for k, a in moe0._asdict().items()
+            for k, a in moe0.items()
         }
     else:
         blocks["ffn"] = {
@@ -164,6 +182,28 @@ def init_params(gen: torch.Generator | None, cfg: TransformerConfig,
     if not cfg.tied_embeddings:
         params["head"] = w((d, cfg.padded_vocab), d)
     return params
+
+
+def _local_experts(name: str, a: torch.Tensor, ranks, dim: int):
+    """Expert weight `name` cut to this rank's experts along `dim` (the
+    router stays whole); all of it without a rank context."""
+    if ranks is None or name == "router":
+        return a
+    ep, er = ranks.axis_size(EXPERT_AXIS), ranks.axis_index(EXPERT_AXIS)
+    e_local = a.shape[dim] // ep
+    return a.narrow(dim, er * e_local, e_local).clone()
+
+
+def shard_params(params: dict, ranks: "RankContext") -> dict:
+    """Whole params (every expert, e.g. from `params_from_numpy`) as this
+    rank's: the MoE expert rows of its coordinate on the expert axis;
+    every other leaf replicated, as it is."""
+    if "moe" not in params["blocks"]:
+        return params
+    blocks = dict(params["blocks"])
+    blocks["moe"] = {k: _local_experts(k, a, ranks, 1)
+                     for k, a in blocks["moe"].items()}
+    return dict(params, blocks=blocks)
 
 
 def _leaves(tree: dict):
@@ -254,16 +294,40 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
 
 
 def _ffn(p: dict, h: torch.Tensor, cfg: TransformerConfig, *,
-         decode: bool) -> torch.Tensor:
-    """The block's FFN: SwiGLU, or MoE at one expert shard (the sort-based
-    dispatch at prefill, the one-hot einsum at decode)."""
+         decode: bool, ranks=None, count_dropped: bool = False):
+    """The block's FFN: SwiGLU, or MoE (the sort-based dispatch at
+    prefill, the one-hot einsum at decode). With `ranks` the experts are
+    sharded over their expert axis and `h` is the same on every rank:
+    at prefill each rank takes its S / ep slice of the sequence through
+    the expert-parallel layer and the outputs are gathered back along S,
+    as the reference's shard_map does (forward only: a gradient through
+    that gather raises). Returns (y, n): n is the MoE prefill's capacity
+    drops on this rank with `count_dropped` (a 0-d int64 tensor), else
+    None."""
     if not cfg.is_moe:
-        return L.swiglu_ffn(L.FFNParams(**p["ffn"]), h)
+        return L.swiglu_ffn(L.FFNParams(**p["ffn"]), h), None
     st = cfg.moe_settings()
     mp = M.MoEParams(**{k: p["moe"][k] for k in M.MoEParams._fields})
+    e_pad = mp.router.shape[-1]
     if decode:
-        return M.moe_ffn_onehot(mp, h, st, st.e_pad(1))
-    return M.moe_ffn_ep_local(mp, h, st, ep=1)
+        return M.moe_ffn_onehot(mp, h, st, e_pad, ranks=ranks,
+                                expert_axis=EXPERT_AXIS), None
+    ep, er, group = M.expert_group(ranks, EXPERT_AXIS)
+    if ep == 1:
+        out = M.moe_ffn_ep_local(mp, h, st, count_dropped=count_dropped)
+    else:
+        s = h.shape[1]
+        if s % ep:
+            raise ValueError(f"a sequence of {s} does not split over {ep} "
+                             "expert ranks")
+        s_loc = s // ep
+        out = M.moe_ffn_ep_local(mp, h[:, er * s_loc:(er + 1) * s_loc], st,
+                                 ranks=ranks, expert_axis=EXPERT_AXIS,
+                                 count_dropped=count_dropped)
+    y, n = out if count_dropped else (out, None)
+    if ep > 1:
+        y = D.gather_replicated(y, group, dim=1)
+    return y, n
 
 
 def _head(params: dict, x: torch.Tensor, cfg: TransformerConfig):
@@ -277,9 +341,9 @@ def _head(params: dict, x: torch.Tensor, cfg: TransformerConfig):
 
 
 def _block(x, p, cfg: TransformerConfig, is_global: bool, window: int,
-           theta: float):
+           theta: float, ranks=None, count_dropped: bool = False):
     """One pre-norm block: attention, then the FFN, each residual. Returns
-    (x, post-RoPE K, V)."""
+    (x, post-RoPE K, V, the FFN's drop count or None; see `_ffn`)."""
     h = L.rms_norm(x, p["ln1"])
     attn_out, kc, vc = _attention_prefill_cached(
         _attn_params(p), h, cfg, is_global=is_global, window=window,
@@ -287,31 +351,41 @@ def _block(x, p, cfg: TransformerConfig, is_global: bool, window: int,
     )
     x = x + attn_out
     h2 = L.rms_norm(x, p["ln2"])
-    return x + _ffn(p, h2, cfg, decode=False), kc, vc
+    y, n = _ffn(p, h2, cfg, decode=False, ranks=ranks,
+                count_dropped=count_dropped)
+    return x + y, kc, vc, n
 
 
 def _forward_trunk(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
-                   *, collect_cache: bool = False):
+                   *, collect_cache: bool = False, ranks=None, dropped=None):
     """Embed + layer stack + final norm. Returns (x, aux, caches|None);
     caches are the stacked post-RoPE (K, V), each (L, B, S, K, Dh). A
     forward that records a gradient rematerializes each block in the
-    backward when `cfg.remat` is set."""
+    backward when `cfg.remat` is set. `ranks`: the experts are sharded
+    over their expert axis (params from `shard_params` or
+    `init_params(ranks=)`), and `dropped` (a 0-d int64 tensor) gets the
+    MoE capacity drops of this forward added, once a layer, outside the
+    remat (see `moe.moe_ffn_ep_local`)."""
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
     window = cfg.sliding_window if cfg.sliding_window > 0 else s + 1
     remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
     layers = _layers(params["blocks"], cfg.n_layers)
+    count = dropped is not None and cfg.is_moe
     ks, vs = [], []
     for p, is_global, theta in zip(layers, cfg.is_global_layers(),
                                    cfg.rope_thetas()):
         if remat:
-            x = checkpoint(_block, x, p, cfg, is_global, window, theta,
-                           use_reentrant=False)[0]
-            continue
-        x, kc, vc = _block(x, p, cfg, is_global, window, theta)
-        if collect_cache:
-            ks.append(kc)
-            vs.append(vc)
+            x, _, _, n = checkpoint(_block, x, p, cfg, is_global, window,
+                                    theta, ranks, count, use_reentrant=False)
+        else:
+            x, kc, vc, n = _block(x, p, cfg, is_global, window, theta,
+                                  ranks, count)
+            if collect_cache:
+                ks.append(kc)
+                vs.append(vc)
+        if count:
+            dropped += n
     x = L.rms_norm(x, params["ln_f"])
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -319,17 +393,18 @@ def _forward_trunk(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
         # Load-balance loss from the last layer's router on the final
         # hidden state (the reference's cheap proxy).
         st = cfg.moe_settings()
-        aux = M.moe_aux_loss(M.MoEParams(**layers[-1]["moe"]), x, st,
-                             st.e_pad(1))
+        last = M.MoEParams(**layers[-1]["moe"])
+        aux = M.moe_aux_loss(last, x, st, last.router.shape[-1])
     caches = (torch.stack(ks), torch.stack(vs)) if collect_cache else None
     return x, aux, caches
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
-            collect_cache: bool = False):
+            collect_cache: bool = False, ranks=None, dropped=None):
     """Full-sequence forward. Returns (logits, aux_loss, caches|None)."""
     x, aux, caches = _forward_trunk(params, tokens, cfg,
-                                    collect_cache=collect_cache)
+                                    collect_cache=collect_cache, ranks=ranks,
+                                    dropped=dropped)
     return _head(params, x, cfg), aux, caches
 
 
@@ -464,11 +539,13 @@ def make_train_step(cfg: TransformerConfig, opt_cfg: AdamWConfig,
 # Serving: prefill + decode
 # ---------------------------------------------------------------------------
 
-def make_prefill_step(cfg: TransformerConfig):
+def make_prefill_step(cfg: TransformerConfig, ranks=None, dropped=None):
     """prefill: (params, tokens (B, S)) -> (next (B,) int32, kc, vc);
-    kc/vc: (L, B, S, K, Dh) in the config's dtype."""
+    kc/vc: (L, B, S, K, Dh) in the config's dtype. `ranks`, `dropped`:
+    as `forward`'s."""
     def prefill_step(params, tokens):
-        logits, _, (kc, vc) = forward(params, tokens, cfg, collect_cache=True)
+        logits, _, (kc, vc) = forward(params, tokens, cfg, collect_cache=True,
+                                      ranks=ranks, dropped=dropped)
         next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         return next_tok, kc.to(cfg.dtype), vc.to(cfg.dtype)
 
@@ -476,10 +553,12 @@ def make_prefill_step(cfg: TransformerConfig):
 
 
 def decode_logits(params: dict, kc: torch.Tensor, vc: torch.Tensor, pos: int,
-                  tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+                  tokens: torch.Tensor, cfg: TransformerConfig,
+                  ranks=None) -> torch.Tensor:
     """One decode step's logits (B, V_pad) for `tokens` (B,) at position
     `pos` (a host int, the current cache length); writes the new K/V into
-    kc/vc (L, B, S_max, K, Dh) in place."""
+    kc/vc (L, B, S_max, K, Dh) in place. `ranks`: the experts are sharded
+    over their expert axis (the one-hot dispatch per rank, summed)."""
     x = _embed(params, tokens, cfg)[:, None, :]  # (B, 1, D)
     window = cfg.sliding_window if cfg.sliding_window > 0 else kc.shape[2] + 1
     layers = _layers(params["blocks"], cfg.n_layers)
@@ -492,17 +571,17 @@ def decode_logits(params: dict, kc: torch.Tensor, vc: torch.Tensor, pos: int,
         )
         x = x + attn_out
         h2 = L.rms_norm(x, p["ln2"])
-        x = x + _ffn(p, h2, cfg, decode=True)
+        x = x + _ffn(p, h2, cfg, decode=True, ranks=ranks)[0]
     x = L.rms_norm(x, params["ln_f"])
     return _head(params, x, cfg)[:, 0, :]
 
 
-def make_serve_step(cfg: TransformerConfig):
+def make_serve_step(cfg: TransformerConfig, ranks=None):
     """decode: (params, kc, vc, pos, tokens (B,)) -> (next (B,), kc, vc).
     kc/vc: (L, B, S_max, K, Dh), updated in place and returned; pos: host
     int, the current cache length."""
     def serve_step(params, kc, vc, pos, tokens):
-        logits = decode_logits(params, kc, vc, pos, tokens, cfg)
+        logits = decode_logits(params, kc, vc, pos, tokens, cfg, ranks)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         return nxt, kc, vc
 

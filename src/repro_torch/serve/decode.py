@@ -135,23 +135,37 @@ class Generator:
     """Greedy generation on one device. `params` (the port's params dict)
     are moved to the device once. The cache is static, (L, B, max_len, K,
     Dh), and updated in place; every step's token stays on the device
-    until the end, so the decode loop makes no host sync."""
+    until the end, so the decode loop makes no host sync.
+
+    With `ranks` (a `RankContext`; its device is the one used), `params`
+    hold this rank's experts (`T.shard_params`) and every rank of the
+    group calls `generate` with the same prompts: the MoE layers run
+    expert-parallel and every rank gets the same tokens. `moe_dropped`
+    counts the MoE capacity drops of the last `start`'s prefill on this
+    rank (a 0-d int64 tensor on the device)."""
     cfg: T.TransformerConfig
     params: dict
     device: Any = None
     max_len: int = 256
+    ranks: Any = None
 
     def __post_init__(self):
+        if self.ranks is not None:
+            self.device = self.ranks.device
         self.device = resolve_device(self.device)
         self.params = _to_device(self.params, self.device)
-        self._prefill = T.make_prefill_step(self.cfg)
-        self._step = T.make_serve_step(self.cfg)
+        self.moe_dropped = torch.zeros((), dtype=torch.int64,
+                                       device=self.device)
+        self._prefill = T.make_prefill_step(self.cfg, self.ranks,
+                                            self.moe_dropped)
+        self._step = T.make_serve_step(self.cfg, self.ranks)
 
     def start(self, tokens: torch.Tensor):
         """Prefill `tokens` (B, S0) on the device into a fresh max_len
         cache. Returns (first new token (B,), kc, vc)."""
         b, s0 = tokens.shape
         kc, vc = T.init_decode_cache(self.cfg, b, self.max_len, self.device)
+        self.moe_dropped.zero_()
         nxt, kc_p, vc_p = self._prefill(self.params, tokens)
         kc[:, :, :s0] = kc_p
         vc[:, :, :s0] = vc_p

@@ -34,9 +34,10 @@ RANK_TIMEOUT = datetime.timedelta(seconds=45)
 def run_ranks(tmp_path, world: int, program: str, *args,
               axis_sizes=None, axis_names=("shards",), device="cpu",
               backend=None, timeout: float = 240.0) -> list:
-    """Run `program` (a function of this file, called as
-    program(ranks, *args)) on `world` spawned ranks; returns each rank's
-    result, rank order. Fails on any rank's error, exit code or hang."""
+    """Run `program` (a function of this file, or "module:function",
+    called as program(ranks, *args)) on `world` spawned ranks; returns
+    each rank's result, rank order. Fails on any rank's error, exit code
+    or hang."""
     import torch.multiprocessing as mp
 
     tag = uuid.uuid4().hex[:8]
@@ -71,6 +72,17 @@ def run_ranks(tmp_path, world: int, program: str, *args,
             for r in range(world)]
 
 
+def _program(name: str):
+    """A rank program: a function of this file, or "module:function" of
+    another importable module (the tests' directory is on the path)."""
+    if ":" not in name:
+        return globals()[name]
+    import importlib
+
+    module, func = name.split(":")
+    return getattr(importlib.import_module(module), func)
+
+
 def _rank_main(rank, world, out, program, args, axis_sizes, axis_names,
                device, backend, timeout):
     """One spawned rank: join the group, run the program, leave."""
@@ -84,7 +96,7 @@ def _rank_main(rank, world, out, program, args, axis_sizes, axis_names,
             init_method=f"file://{out}/rendezvous", timeout=timeout,
         )
         try:
-            result = globals()[program](ranks, *args)
+            result = _program(program)(ranks, *args)
         finally:
             ranks.close()
         with open(f"{out}/{rank}.pkl", "wb") as f:

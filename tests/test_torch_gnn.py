@@ -405,41 +405,65 @@ def test_params_from_numpy_rejects_a_wrong_key_or_shape():
     ("graphcast", dict(shuffle_gather=True, edge_stream_chunks=4)),
 ])
 def test_node_sharding_and_shuffle_raise_on_one_device(arch, changes):
+    """The one-shard rule (the reference on a (1, 1) mesh): without a rank
+    context, node sharding and the shuffle run on the whole graph and
+    equal the plain path exactly. (Across ranks:
+    tests/test_torch_dist_gnn.py.) The name dates from when these paths
+    raised on one device; it is kept so that the test's history stays
+    one line."""
     _, cfg = _configs(arch, **changes)
     _, params = _params(arch, *_configs(arch))
     g = TG.to_device(_graph(arch), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2.3"):
-        TR._gnn_module(arch).apply(params, g, cfg)
+    plain = dataclasses.replace(cfg, node_spec=(), shuffle_gather=False)
+    mod = TR._gnn_module(arch)
+    with torch.inference_mode():
+        got = mod.apply(params, g, cfg)
+        want = mod.apply(params, g, plain)
+        assert torch.equal(mod.apply(params, g, cfg, ranks=None), got)
+    assert torch.equal(got, want)
 
 
 def test_node_ops_raise_for_sharding_or_the_shuffle():
+    """Without a rank context the node ops are the plain ones, whatever
+    node_spec and shuffle say: x[ids] and the sorted aggregate, exactly.
+    The name dates from when these ops raised for sharding or the
+    shuffle; it is kept so that the test's history stays one line."""
     x = torch.randn(5, 3)
     ids = torch.tensor([0, 1, 1, 4], dtype=torch.int32)
-    mask = torch.ones(4, dtype=torch.bool)
+    mask = torch.tensor([True, True, False, True])
     torch.testing.assert_close(TC.take_nodes(x, ids, mask), x[ids])
-    torch.testing.assert_close(TC.aggregate_nodes(x[:4], ids, 5, mask),
-                               TC.aggregate(x[:4], ids, 5, mask))
-    for kw in (dict(node_spec=("data",)), dict(shuffle=True)):
-        with pytest.raises(NotImplementedError):
-            TC.take_nodes(x, ids, mask, **kw)
-        with pytest.raises(NotImplementedError):
-            TC.aggregate_nodes(x[:4], ids, 5, mask, **kw)
-    with pytest.raises(NotImplementedError):
-        TC.constrain_nodes(x, ("model",))
-    with pytest.raises(NotImplementedError):
-        TC.aggregate(x[:4], ids, 5, mask, node_spec=("data",))
+    want = TC.aggregate(x[:4], ids, 5, mask)
+    torch.testing.assert_close(TC.aggregate_nodes(x[:4], ids, 5, mask), want)
+    for kw in (dict(node_spec=("data",)), dict(shuffle=True),
+               dict(node_spec=("data", "model"), shuffle=True)):
+        assert torch.equal(TC.take_nodes(x, ids, mask, **kw), x[ids])
+        assert torch.equal(TC.aggregate_nodes(x[:4], ids, 5, mask, **kw),
+                           want)
+    assert TC.constrain_nodes(x, ("model",)) is x
+    assert torch.equal(TC.aggregate(x[:4], ids, 5, mask,
+                                    node_spec=("data",)), want)
 
 
 def test_large_graph_binding_needs_several_devices():
-    """ogb_products (>= 1M nodes) binds node sharding, which raises."""
+    """ogb_products (>= 1M nodes) binds node sharding over every axis, the
+    shuffle, bf16 and remat; on one device (no rank context) that config
+    runs as one shard and equals the same config unsharded, bit for bit.
+    Its ranks' part: tests/test_torch_dist_gnn.py. The name dates from
+    when this binding raised on one device; it is kept so that the test's
+    history stays one line."""
     dims = TR._gnn_dims("meshgraphnet", TR.GNN_SHAPES["ogb_products"], 1)
     cfg = TR._gnn_cfg_for_shape("meshgraphnet", _configs("meshgraphnet")[1],
                                 dims)
     assert dims["shard_nodes"] and cfg.node_spec == ("data", "model")
+    assert cfg.shuffle_gather and cfg.remat
     _, params = _params("meshgraphnet", *_configs("meshgraphnet"))
     g = TG.to_device(_graph("meshgraphnet"), "cpu")
-    with pytest.raises(NotImplementedError):
-        TR._gnn_module("meshgraphnet").apply(params, g, cfg)
+    mod = TR._gnn_module("meshgraphnet")
+    plain = dataclasses.replace(cfg, node_spec=(), shuffle_gather=False)
+    with torch.inference_mode():
+        got = mod.apply(params, g, cfg)
+        assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+        assert torch.equal(got, mod.apply(params, g, plain))
 
 
 DTYPE_NAMES = {jnp.float32: "float32", jnp.bfloat16: "bfloat16",

@@ -55,6 +55,7 @@ def test_port_imports_without_jax_or_reference():
         "repro_torch.models.gnn.meshgraphnet",
         "repro_torch.models.gnn.graphcast",
         "repro_torch.models.gnn.sampler",
+        "repro_torch.models.gnn.distributed",
         "repro_torch.models.recsys.deepfm",
         "repro_torch.data.graphs",
         "repro_torch.data.recsys",

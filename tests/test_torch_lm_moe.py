@@ -124,7 +124,7 @@ def test_moe_ffn_ep_local_at_one_shard(mesh, dt, cf, skew):
     pj, pt = _params(rng, 8, 8, dt, skew)
     xj, xt = _x(rng, (2, 32, D), dt, skew)
     want = _ref_ep_local(mesh, pj, xj, st_j)
-    got = TM.moe_ffn_ep_local(pt, xt, st_t, ep=1)
+    got = TM.moe_ffn_ep_local(pt, xt, st_t)
     assert got.dtype == TDT[dt]
     np.testing.assert_allclose(got.float().numpy(), _np(want), **TOL[dt])
     if cf < 1:  # some tokens lost every expert: their output is exactly 0
@@ -134,10 +134,18 @@ def test_moe_ffn_ep_local_at_one_shard(mesh, dt, cf, skew):
 
 
 def test_moe_ffn_ep_local_refuses_several_shards():
+    """Without a rank context the layer is one shard: one shard's experts
+    of several (half the router's columns) are refused, not run as if
+    they were every expert. The expert group comes from the ranks alone
+    (tests/test_torch_dist_moe.py runs it at ep > 1)."""
     rng = np.random.default_rng(0)
     _, pt = _params(rng, 8, 8, "float32")
     _, xt = _x(rng, (1, 8, D), "float32")
-    with pytest.raises(NotImplementedError):
+    half = pt._replace(**{k: getattr(pt, k)[:4]
+                          for k in ("we_gate", "we_up", "we_down")})
+    with pytest.raises(ValueError, match="experts"):
+        TM.moe_ffn_ep_local(half, xt, TM.MoESettings(8, 2, FE))
+    with pytest.raises(TypeError):
         TM.moe_ffn_ep_local(pt, xt, TM.MoESettings(8, 2, FE), ep=2)
 
 

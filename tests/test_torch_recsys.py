@@ -138,14 +138,14 @@ def test_a_lookup_fn_of_the_callers_own_is_used():
     ids = torch.from_numpy(_batch(rcfg)["ids"])
     seen = []
 
-    def lookup(table, flat):  # a plain gather: the same rows as the bag
-        seen.append(flat.shape)
-        return table[flat.long()]
+    def lookup(tables, flat):  # a plain gather: the same rows as the bag
+        seen.append((len(tables), flat.shape))
+        return tuple(t[flat.long()] for t in tables)
 
     with torch.inference_mode():
         a = TD.forward(params, ids, cfg)
         b = TD.forward(params, ids, cfg, lookup_fn=lookup)
-    assert seen == [(32 * 6,)] * 2  # the table, then fm_w
+    assert seen == [(2, (32 * 6,))]  # the table and fm_w, in one call
     _close(b, a.numpy(), BAG_TOL)
 
 
