@@ -192,14 +192,36 @@ Phases (any failure ends the run with a non-zero exit and no "ok" line):
      the collectives, and the collectives' share of a call (in a run with
      a synchronize around each collective). Any rank's failure or hang
      fails the phase.
- 14. summary — the stacked-forms line, the kernels line, the card line,
+ 14. training across ranks — 4 ranks sharing the card over gloo, spawned
+     once, each part's meshes built on the one group. (a) The reference's
+     mesh program's reduced MoE LM (tests/distributed/lm_mesh_prog.py) in
+     float32 on meshes (data 2, model 2), (4, 1) and (1, 4), 2 steps
+     that clip: loss, grad_norm and the params (relative L2 of the tree)
+     within 1e-5 of the one-process step on the card, each leaf within
+     1e-3 of its norm. (b) gemma3-1b at full width, 13 of its 26 layers
+     (all 26 with --train-ranks-nccl), bf16, remat, global batch 4 x
+     1024: 2 steps at (data 4) with ZeRO-1, step 1's checkpoint written
+     across the ranks and restored in one process, whose step 2 is held
+     to the ranks'; 1 step at (data 2, model 2) with the sequence cut:
+     loss within 2e-3 and grad_norm within 1e-2 of one card's; step ms,
+     peak, the bytes handed to the collectives and their share a rank.
+     (c) qwen2.5-32b at full width with its FSDP, 1 layer, 4 x 512,
+     (data 4), 1 step: the loss and grad_norm as (b)'s. (d) phase 13's
+     graphs (MeshGraphNet's cut to 2^15 nodes), float32, 1 step:
+     segment_reduce once per aggregation and again in the remat on every
+     rank, each route's Reduce held to the plain version, params and
+     grad_norm within 1e-5 of one card's. (e) DeepFM at its published
+     config (8,385,000 table rows a rank) and train_batch, 1 step, m and
+     v as `_opt_specs` cuts them: the updated rows within 1e-6 of one
+     card's.
+ 15. summary — the stacked-forms line, the kernels line, the card line,
      then the result line.
 
-Each of the paths of phases 3, 5, 6, 7, 8, 9, 11, 12 and 13 runs with the
-launch counts set to 0 just before it and read just after (in phases 9 and
-13 on each rank); the kernels line reports each kernel's launches from the
-path that runs it (segment_reduce's: the kernel API's, phase 11's, phase
-12's and phase 13's, also apart).
+Each of the paths of phases 3, 5, 6, 7, 8, 9, 11, 12, 13 and 14 runs with
+the launch counts set to 0 just before it and read just after (in phases
+9, 13 and 14 on each rank); the kernels line reports each kernel's
+launches from the path that runs it (segment_reduce's: the kernel API's,
+phase 11's, 12's, 13's and 14's, also apart).
 
 Needs the repository's src/ beside it and one CUDA card; exits non-zero
 without them.
@@ -227,6 +249,16 @@ several cards (4 H100s joined by NVLink): (a) and (b) at the same shapes, and
 MeshGraphNet alone at ogb_products' registry dims (2,449,408 nodes,
 61,859,328 edge slots, bf16, remat, the shuffle; outputs finite). No
 result line.
+
+    python3 chip_smoke.py --train-ranks-only
+
+runs the build and phase 14 alone (no result line).
+
+    python3 chip_smoke.py --train-ranks-nccl
+
+runs the build and phase 14's (b) with one NCCL rank on each of 4 cards,
+at full depth and train_4k's sequence (global batch 4 x 4096); the
+one-card reference takes it in two micro-batches. No result line.
 
     python3 chip_smoke.py --kernels-only [--src OTHER/src]
 
@@ -829,6 +861,14 @@ def kernel_phase(dev) -> dict[str, dict]:
                  mesh_ids, primary=dtype == torch.float32)
     seg_case("graphcast m2g", 168_960, 512, 169_984, torch.float32,
              random_ids(168_960, 169_984), primary=False)
+    # a rank's owner-side Reduce of MeshGraphNet's shuffle scatter, in
+    # phases 13 and 14 (2^17 nodes over 4 ranks: 818,442 rows received
+    # into the rank's 32,768 nodes), bf16 as the registry binds it and
+    # float32 as phase 14 trains it
+    route_ids = random_ids(818_442, 32_768)
+    for dtype in (torch.bfloat16, torch.float32):
+        seg_case("meshgraphnet rank route", 818_442, 128, 32_768, dtype,
+                 route_ids, primary=False)
     bags = torch.arange(10_223_616, dtype=torch.int32, device=dev)
     for d in (10, 1):
         seg_case("deepfm bag serve_bulk", 10_223_616, d, 10_223_616,
@@ -4453,6 +4493,719 @@ def exchange_phase(dev, nccl: bool = False) -> dict:
     return out
 
 
+# -- phase 14: training across ranks -------------------------------------------
+
+TRANKS = 4
+TRAIN_AXES = ("data", "model")
+# (a) the reference's mesh program's config (tests/distributed/lm_mesh_prog.py:
+# 6 experts, capacity factor 8, vocab 250 padded to 256) in float32 on three
+# meshes, 2 steps, held to the one-process step on the card: loss, grad_norm
+# and the params (the relative L2 error of the whole tree) within 1e-5, and
+# each param leaf within 1e-3 of its own norm. AdamW's first steps divide
+# each element by its own magnitude plus eps (1e-8), and a third of the
+# embedding's gradient elements are 0 or near 1e-8 (tokens a batch does not
+# use, or uses once), so the sums' order moves such an element by up to
+# lr: 5.5e-5 of a zero-initialized norm weight's leaf in a CPU rehearsal.
+# A wrong or missing gradient moves a leaf by O(lr) in every element: O(1)
+# of a zero-initialized leaf, far past 1e-3
+TRAIN_MESHES = ((2, 2), (4, 1), (1, 4))
+TRAIN_MESH_RTOL, TRAIN_LEAF_RTOL = 1e-5, 1e-3
+TRAIN_MESH_BATCH, TRAIN_MESH_SEQ, TRAIN_MESH_STEPS = 8, 32, 2
+# (b) gemma3-1b at full width (depth below), bf16, remat, DEFAULT_OPT: the
+# global batch 4 x 1024 (--train-ranks-nccl: train_4k's sequence, 4 x
+# 4096), 2 steps at (data 4) with ZeRO-1 and a checkpoint at step 1 (3
+# steps and a checkpoint at step 2 took phase 14 past its 200 s: 203.6 s,
+# run D), 1 at (data 2, model 2) with the sequence cut; bf16 sums in
+# another order: the reference's invariance bound on the loss, 1e-2 on
+# grad_norm
+GEMMA_X_BATCH, GEMMA_X_SEQ, GEMMA_X_NCCL_SEQ = 4, 1024, 4096
+GEMMA_X_STEPS, GEMMA_X_CKPT = 2, 1
+# on gloo the depth is cut to 13 of 26 layers (6 and 12 global, as the
+# 5:1 pattern places them): at full depth the whole smoke took 922.5 s of
+# its 900 s budget (run F), 64 s of phase 14's 171.2 in the 10 GB
+# checkpoint's write and restore; NCCL runs the full depth
+GEMMA_X_GLOO_LAYERS = 13
+GEMMA_X_LOSS_RTOL, GEMMA_X_GNORM_RTOL = 2e-3, 1e-2
+# (c) qwen2.5-32b at full width with its FSDP and the chunked loss, depth
+# cut to 1 layer (2.04 B params: at 2 layers, 2.53 B, four ranks' state and
+# the functional AdamW's new state did not fit one card: 17.0 GB a rank,
+# run A), 4 x 512 (2 x 1024 does not split over 4 data ranks; the same
+# 2,048 tokens), 1 step at (data 4)
+QWEN_X_LAYERS, QWEN_X_BATCH, QWEN_X_SEQ = 1, 4, 512
+# (d) phase 13's gloo graphs, float32, 1 step of `train_opt` (lr 3e-3),
+# MeshGraphNet's cut to 2^15 nodes (its step took 32.7 s a rank at 2^17,
+# run D in PERF.md, and 16.7 s at 2^16, run F, whose whole smoke passed
+# 900 s): grad_norm within 1e-5 of the one-process step's; the params
+# (relative L2 of the tree) within 3e-4 and each leaf within 1e-2 of its
+# norm. AdamW's first step moves an element by lr * g / (|g| + 1e-8), so
+# an element whose gradient, a sum over every edge, cancels to near 0
+# moves by up to 2 lr when a float32 sum in another order flips its sign:
+# the sound run H read 1.0e-4 of the tree and 2.9e-3 of a leaf
+# (GraphCast's zero-initialized g2m edge bias; MeshGraphNet 1.3e-5 and
+# 2.1e-4). A wrong or missing gradient moves every element of its leaf by
+# O(lr): O(1) of a zero-initialized leaf, ~0.1 of a weight's
+TRAIN_GNN_RTOL, TRAIN_GNN_LEAF_RTOL, TRAIN_GNN_GNORM_RTOL = 3e-4, 1e-2, 1e-5
+TRAIN_MGN_NODES = 2**15
+# (e) DeepFM at its published config and train_batch over (1, 4), 1 step of
+# `train_opt`: grad_norm within 1e-6 of the one-process step's; the rows
+# the batch updates, a sample of the others and the dense weights within
+# 2e-5 (sums of up to a few hundred terms in another order, then AdamW's
+# first step, lr times a sign where a gradient is not near 0: run H read
+# 5.5e-6); a wrong gradient moves an element by O(lr), 3e-3
+DEEPFM_TRAIN_ATOL, DEEPFM_TRAIN_GNORM_RTOL = 2e-5, 1e-6
+DEEPFM_TRAIN_SAMPLE = 4096
+
+
+def tree_rel_err(name: str, got: list, want, rtol: float,
+                 leaf_rtol: float) -> float:
+    """The relative L2 error of a tree of leaves (`got`, in `want`'s leaf
+    order) against `want`'s, within `rtol`, each leaf's of its own norm
+    within `leaf_rtol`; fails beyond either, and logs the worst leaf."""
+    from repro_torch import tree as TT
+
+    diff2 = norm2 = 0.0
+    worst = (0.0, "")
+    for path, g, w in zip(TT.paths(want), got, TT.leaves(want)):
+        d, n = float((g - w).float().norm()), float(w.float().norm())
+        worst = max(worst, (d / max(n, 1e-30), path))
+        diff2, norm2 = diff2 + d * d, norm2 + n * n
+    err = (diff2 / norm2) ** 0.5
+    log(f"{name}: params {err} off one process; worst leaf {worst[1]} "
+        f"{worst[0]} of its norm")
+    check(err <= rtol, f"{name}: params {err} off one process")
+    check(worst[0] <= leaf_rtol, f"{name}: {worst[1]} {worst[0]} of its "
+          "norm off one process")
+    return err
+
+
+def mesh_lm_config():
+    from repro_torch.models import transformer as T
+
+    return T.TransformerConfig(
+        name="mesh-test", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
+        d_head=8, d_ff=64, vocab=250, n_experts=6, top_k=2, d_expert_ff=32,
+        capacity_factor=8.0, kv_chunk=8, remat=True, dtype=torch.float32)
+
+
+def train_opt():
+    """(a), (d) and (e)'s optimizer, the CPU tests' (lr 3e-3 from the
+    first step, so a wrong or missing gradient moves a leaf by O(lr));
+    in (a) every step clips (clip_norm under the gradients' norm of
+    ~1.4)."""
+    from repro_torch.optim.adamw import AdamWConfig
+
+    return AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=10,
+                       clip_norm=0.5)
+
+
+def mesh_lm_batches(dev) -> list[dict]:
+    gen = torch.Generator(device=dev).manual_seed(1)
+    return [{k: torch.randint(0, 250, (TRAIN_MESH_BATCH, TRAIN_MESH_SEQ),
+                              generator=gen, device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+            for _ in range(TRAIN_MESH_STEPS)]
+
+
+def rows_of(batch: dict, ranks) -> dict:
+    from repro_torch.data.tokens import data_rows
+
+    return data_rows(batch, ranks.axis_index("data"), ranks.axis_size("data"))
+
+
+def whole_leaves(tree, specs, ranks) -> list:
+    from repro_torch import tree as TT
+    from repro_torch.core import specs as S
+
+    return [S.gather(x, s, ranks).cpu() for x, s in zip(
+        TT.leaves(tree), S.spec_leaves(specs, tree))]
+
+
+def mesh_lm_rank_runs(ranks) -> dict:
+    """(a) on one rank: the reduced MoE LM in float32 on each mesh, 2
+    steps from the same seeded weights; metrics and (rank 0) the whole
+    params after each step."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+
+    cfg, out = mesh_lm_config(), {}
+    for sizes in TRAIN_MESHES:
+        mesh = ranks.remesh(sizes, TRAIN_AXES)
+        specs = T.param_specs(cfg, False, sizes[1])
+        whole = T.init_params(torch.Generator(device=ranks.device)
+                              .manual_seed(0), cfg, ep=sizes[1])
+        params = T.shard_params(whole, mesh, specs)
+        state = adamw_init(params, specs, mesh)
+        step = T.make_train_step(cfg, train_opt(), ranks=mesh)
+        steps = []
+        for b in mesh_lm_batches(ranks.device):
+            params, state, m = step(params, state, rows_of(b, mesh))
+            rec = {k: float(m[k]) for k in ("loss", "grad_norm", "aux")}
+            if ranks.rank == 0:
+                rec["params"] = whole_leaves(params, specs, mesh)
+            else:
+                whole_leaves(params, specs, mesh)  # every rank gathers
+            steps.append(rec)
+        out[sizes] = steps
+    return out
+
+
+def mesh_lm_reference(dev, recs: list) -> dict:
+    """(a)'s reference: the one-process step on the card, each mesh's
+    expert padding, held to every rank's metrics and rank 0's params."""
+    from repro_torch import tree as TT
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+
+    cfg, out = mesh_lm_config(), {}
+    for sizes in TRAIN_MESHES:
+        params = T.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg, ep=sizes[1])
+        state = adamw_init(params)
+        step = T.make_train_step(cfg, train_opt())
+        worst = {"loss": 0.0, "grad_norm": 0.0, "params": 0.0}
+        for k, b in enumerate(mesh_lm_batches(dev)):
+            params, state, m = step(params, state, b)
+            want = {n: float(m[n]) for n in ("loss", "grad_norm")}
+            check(want["grad_norm"] > train_opt().clip_norm,
+                  f"train mesh {sizes}: step {k + 1} does not clip")
+            for rec in recs:
+                got = rec["mesh_lm"][sizes][k]
+                for n in ("loss", "grad_norm"):
+                    err = abs(got[n] - want[n]) / abs(want[n])
+                    check(err <= TRAIN_MESH_RTOL, f"train mesh {sizes} "
+                          f"step {k + 1} rank {rec['rank']}: {n} "
+                          f"{got[n]} vs one process {want[n]}")
+                    worst[n] = max(worst[n], err)
+            got = recs[0]["mesh_lm"][sizes][k]["params"]
+            err = tree_rel_err(f"train mesh {sizes} step {k + 1}",
+                               [g.to(dev) for g in got], params,
+                               TRAIN_MESH_RTOL, TRAIN_LEAF_RTOL)
+            worst["params"] = max(worst["params"], err)
+        out[f"{sizes[0]}x{sizes[1]}"] = worst
+    log(f"train (a) reduced MoE LM float32 across ranks vs one process, "
+        f"relative errors: {out}")
+    return out
+
+
+def gemma_x_config(nccl: bool):
+    """(b)'s gemma3-1b: full width, the depth cut on gloo."""
+    cfg = arch_config("gemma3-1b")
+    if nccl:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=GEMMA_X_GLOO_LAYERS)
+
+
+def gemma_x_batches(seq: int) -> list[dict]:
+    from repro_torch.data.tokens import TokenPipeline
+
+    pipe = TokenPipeline(vocab=arch_config("gemma3-1b").vocab,
+                         batch=GEMMA_X_BATCH, seq=seq)
+    return [pipe.batch_at(k) for k in range(GEMMA_X_STEPS)]
+
+
+def on_card(batch: dict, dev) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def timed_step(step, params, state, batch, counted=None):
+    """One train step with CUDA events around it (ms) and its metrics on
+    the host; `counted` (a CollectiveBytes) counts its collectives."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    with counted or contextlib.nullcontext():
+        params, state, m = step(params, state, batch)
+    ev[1].record()
+    torch.cuda.synchronize()
+    return params, state, {k: float(v) for k, v in m.items()}, \
+        ev[0].elapsed_time(ev[1])
+
+
+def gemma_rank_runs(ranks, seq: int, ckpt_dir: str, nccl: bool) -> dict:
+    """(b) on one rank: gemma3-1b at (data 4) with ZeRO-1 for
+    GEMMA_X_STEPS steps, a checkpoint of step GEMMA_X_CKPT written across
+    the ranks, the last step's collectives counted and timed; then 1 step
+    at (data 2, model 2) with the sequence cut over "model"."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import DEFAULT_OPT
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init, state_specs
+
+    dev = ranks.device
+    cfg = gemma_x_config(nccl)
+    batches = gemma_x_batches(seq)
+    out = {}
+    for sizes, n_steps in (((4, 1), GEMMA_X_STEPS), ((2, 2), 1)):
+        mesh = ranks.remesh(sizes, TRAIN_AXES)
+        specs = T.param_specs(cfg, False, sizes[1])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = T.shard_params(T.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg), mesh, specs)
+        state = adamw_init(params, specs, mesh)
+        step = T.make_train_step(cfg, DEFAULT_OPT, ranks=mesh)
+        rec = {"steps": [], "ms": []}
+        for k in range(n_steps):
+            b = on_card(rows_of(batches[k], mesh), dev)
+            # the last step's collectives counted and timed (a synchronize
+            # around each; gloo's block the host anyway)
+            counted = (CollectiveBytes(timed=True) if k == n_steps - 1
+                       else None)
+            params, state, m, ms = timed_step(step, params, state, b,
+                                              counted)
+            rec["steps"].append({n: m[n] for n in ("loss", "grad_norm")})
+            rec["ms"].append(round(ms, 3))
+            if counted is not None:
+                rec["collective_bytes"] = counted.bytes
+                rec["remote_bytes"] = counted.remote
+                rec["nvlink_bound_ms"] = nvlink_ms(counted.remote)
+                rec["collective_calls"] = counted.calls
+                rec["collectives"] = {
+                    "collective_ms": round(counted.seconds * 1e3, 3),
+                    "share": round(counted.seconds * 1e3 / ms, 4)}
+            if sizes == (4, 1) and k + 1 == GEMMA_X_CKPT:
+                mgr = CheckpointManager(ckpt_dir, keep_k=1)
+                t = time.perf_counter()
+                mgr.save(k + 1, {"params": params, "opt": state},
+                         extra_meta={"pipeline": {"step": k + 1}},
+                         ranks=mesh, specs={
+                             "params": specs,
+                             "opt": state_specs(params, specs, mesh)})
+                mgr.wait()
+                rec["checkpoint_s"] = round(time.perf_counter() - t, 2)
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out[f"{sizes[0]}x{sizes[1]}"] = rec
+        del params, state, step
+        log(f"rank {ranks.rank} gemma3-1b {sizes}: {rec}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def gemma_reference(dev, recs: list, seq: int, ckpt_dir: str,
+                    nccl: bool) -> dict:
+    """(b)'s reference: the one-process step on the card from the seeded
+    weights (step 1, timed warm), held to both meshes' step 1; then the
+    ranks' checkpoint restored in one process and its next step held to
+    the ranks' last."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import DEFAULT_OPT
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+
+    cfg = gemma_x_config(nccl)
+    batches = gemma_x_batches(seq)
+    n_micro = 1 if seq <= GEMMA_X_SEQ else 2
+    step = T.make_train_step(cfg, DEFAULT_OPT, n_micro=n_micro)
+    loss_fn = T.make_loss_fn(cfg)
+
+    def loss_of(params, batch) -> float:
+        """The batch's mean nll (the ranks' loss metric): the step's own at
+        one micro-batch, else the mean of each half's."""
+        mb = batch["tokens"].shape[0] // n_micro
+        with torch.no_grad():
+            return statistics.fmean(float(loss_fn(
+                params, batch["tokens"][i:i + mb],
+                batch["labels"][i:i + mb])[1]["loss"])
+                for i in range(0, batch["tokens"].shape[0], mb))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    state = adamw_init(params)
+    b = on_card(batches[0], dev)
+    _, _, m1, cold = timed_step(step, params, state, b)
+    _, _, m1, warm = timed_step(step, params, state, b)
+    if n_micro > 1:
+        m1["loss"] = loss_of(params, b)
+    out = {"one_card_step_ms": [round(cold, 3), round(warm, 3)],
+           "one_card_peak_bytes": torch.cuda.max_memory_allocated(),
+           "one_card_step1": {n: m1[n] for n in ("loss", "grad_norm")}}
+    del params, state
+
+    def hold(label, got, want):
+        for n, rtol in (("loss", GEMMA_X_LOSS_RTOL),
+                        ("grad_norm", GEMMA_X_GNORM_RTOL)):
+            err = abs(got[n] - want[n]) / abs(want[n])
+            check(err <= rtol, f"gemma3-1b {label}: {n} {got[n]} vs one "
+                  f"process {want[n]} (rtol {rtol})")
+            out[f"{label} {n} rel err"] = round(err, 7)
+
+    for rec in recs:
+        for mesh in ("4x1", "2x2"):
+            hold(f"{mesh} step 1 rank {rec['rank']}",
+                 rec["gemma"][mesh]["steps"][0], m1)
+    torch.cuda.empty_cache()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    like = {"params": params, "opt": adamw_init(params)}
+    mgr = CheckpointManager(ckpt_dir, keep_k=1)
+    check(mgr.all_steps() == [GEMMA_X_CKPT],
+          f"gemma3-1b: the ranks' checkpoints {mgr.all_steps()}")
+    t = time.perf_counter()
+    back = mgr.restore(GEMMA_X_CKPT, like)
+    torch.cuda.synchronize()
+    out["restore_at_world_1_s"] = round(time.perf_counter() - t, 2)
+    del like, params
+    b = on_card(batches[GEMMA_X_CKPT], dev)
+    _, _, m3, _ = timed_step(step, back["params"], back["opt"], b)
+    if n_micro > 1:
+        m3["loss"] = loss_of(back["params"], b)
+    out["one_card_after_restore"] = {n: m3[n] for n in ("loss",
+                                                        "grad_norm")}
+    for rec in recs:
+        hold(f"4x1 step {GEMMA_X_CKPT + 1} rank {rec['rank']}",
+             rec["gemma"]["4x1"]["steps"][GEMMA_X_CKPT], m3)
+    del back
+    torch.cuda.empty_cache()
+    log(f"train (b) gemma3-1b across ranks vs one card: {out}")
+    return out
+
+
+def qwen_rank_runs(ranks) -> dict:
+    """(c) on one rank: qwen2.5-32b at full width, 1 layer, its FSDP
+    ("data" cuts of every weight, gathered block by block, again in the
+    remat) and ZeRO-1 at (data 4): one step, its collectives counted."""
+    from repro_torch.configs.registry import DEFAULT_OPT
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+
+    dev = ranks.device
+    cfg = arch_config("qwen2.5-32b", n_layers=QWEN_X_LAYERS)
+    check(cfg.fsdp and cfg.ce_chunk > 0, "qwen2.5-32b: FSDP, chunked loss")
+    mesh = ranks.remesh((4, 1), TRAIN_AXES)
+    specs = T.param_specs(cfg, False, 1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.shard_params(T.init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg), mesh, specs)
+    torch.cuda.empty_cache()
+    state = adamw_init(params, specs, mesh)
+    step = T.make_train_step(cfg, DEFAULT_OPT, ranks=mesh)
+    batch = TokenPipeline(vocab=cfg.vocab, batch=QWEN_X_BATCH,
+                          seq=QWEN_X_SEQ).batch_at(0)
+    counted = CollectiveBytes()
+    _, _, m, ms = timed_step(step, params, state,
+                             on_card(rows_of(batch, mesh), dev), counted)
+    rec = {"loss": m["loss"], "grad_norm": m["grad_norm"],
+           "step_ms": round(ms, 3),
+           "param_bytes": tree_bytes(params),
+           "opt_bytes": tree_bytes([state["m"], state["v"]]),
+           "collective_bytes": counted.bytes, "remote_bytes": counted.remote,
+           "nvlink_bound_ms": nvlink_ms(counted.remote),
+           "collective_calls": counted.calls,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del params, state, step
+    torch.cuda.empty_cache()
+    log(f"rank {ranks.rank} qwen2.5-32b {QWEN_X_LAYERS} layer(s) FSDP "
+        f"(4, 1): {rec}")
+    return rec
+
+
+def qwen_reference(dev, recs: list) -> dict:
+    """(c)'s reference: the one-process step on the card."""
+    from repro_torch.configs.registry import DEFAULT_OPT
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+
+    cfg = arch_config("qwen2.5-32b", n_layers=QWEN_X_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    state = adamw_init(params)
+    batch = on_card(TokenPipeline(vocab=cfg.vocab, batch=QWEN_X_BATCH,
+                                  seq=QWEN_X_SEQ).batch_at(0), dev)
+    _, _, m, ms = timed_step(T.make_train_step(cfg, DEFAULT_OPT), params,
+                             state, batch)
+    out = {"one_card_step_ms": round(ms, 3),
+           "one_card_peak_bytes": torch.cuda.max_memory_allocated(),
+           "params": T.count_params(cfg)[0],
+           "loss": m["loss"], "grad_norm": m["grad_norm"]}
+    del params, state
+    torch.cuda.empty_cache()
+    for rec in recs:
+        got = rec["qwen"]
+        for n, rtol in (("loss", GEMMA_X_LOSS_RTOL),
+                        ("grad_norm", GEMMA_X_GNORM_RTOL)):
+            err = abs(got[n] - m[n]) / abs(m[n])
+            check(err <= rtol, f"qwen2.5-32b rank {rec['rank']}: {n} "
+                  f"{got[n]} vs one process {m[n]} (rtol {rtol})")
+            out[f"rank {rec['rank']} {n} rel err"] = round(err, 7)
+    log(f"train (c) qwen2.5-32b FSDP across ranks vs one card: {out}")
+    return out
+
+
+def gnn_train_rank_runs(ranks) -> dict:
+    """(d) on one rank: one float32 train step of MeshGraphNet and of
+    GraphCast (streamed), node-sharded with the shuffle and remat as the
+    registry binds them: segment_reduce launched once per aggregation in
+    the forward and again in the remat, each scatter route's Reduce held
+    to the plain version; the new params and grad_norm."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch import tree as TT
+    from repro_torch.configs.registry import _gnn_module, gnn_train_step
+    from repro_torch.data.graphs import shard_graph
+    from repro_torch.optim.adamw import adamw_init
+
+    out = {"launches": 0}
+    for arch, nodes in (("meshgraphnet", TRAIN_MGN_NODES),
+                        ("graphcast", XRANK_GC_NODES)):
+        cfg, g, chunks = xrank_graph(arch, nodes)
+        cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        check(cfg.remat and cfg.shuffle_gather, f"{arch}: remat, shuffle")
+        gs = shard_graph(g, ranks, chunks)
+        mod = _gnn_module(arch)
+        params = mod.init_params(torch.Generator(device=ranks.device)
+                                 .manual_seed(XRANK_GNN_SEED + 1), cfg)
+        routes = gs.extras["routes"]
+        per_forward = cfg.n_layers if arch == "meshgraphnet" else (
+            cfg.n_layers + len(routes["g2m"].scatter)
+            + len(routes["m2g"].scatter))
+        step = gnn_train_step(mod, cfg, train_opt(), ranks=ranks)
+        torch.cuda.reset_peak_memory_stats()
+        clear_launches(kernels)
+        counted = CollectiveBytes()
+        with ScatterCalls() as calls:
+            new, _, m, ms = timed_step(step, params, adamw_init(params), gs,
+                                       counted)
+        got = kernels.LAUNCHES["segment_reduce"]
+        clear_launches(kernels)
+        check(got == 2 * per_forward, f"{arch} train step rank "
+              f"{ranks.rank}: segment_reduce launched {got} times; the "
+              f"forward's {per_forward} aggregations and the remat's need "
+              f"{2 * per_forward}")
+        out["launches"] += got
+        held = hold_scatters(f"{arch} train step rank {ranks.rank}", calls)
+        n_routes = sum(len(r.scatter) for r in routes.values())
+        check(held["routes"] == n_routes, f"{arch} train step: "
+              f"{held['routes']} of the {n_routes} scatter routes held")
+        out[arch] = {
+            "step_ms": round(ms, 3), "grad_norm": m["grad_norm"],
+            "segment_reduce_launches": got, "scatter_reduce": held,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "collective_bytes": counted.bytes, "remote_bytes": counted.remote,
+            "params": [p.cpu() for p in TT.leaves(new)]}
+        log(f"rank {ranks.rank} {arch} float32 train step: "
+            f"{ {k: v for k, v in out[arch].items() if k != 'params'} }")
+        del params, new, gs, g
+        torch.cuda.empty_cache()
+    return out
+
+
+def gnn_train_reference(dev, recs: list) -> dict:
+    """(d)'s reference: each arch's float32 step in one process on the
+    whole graph, the same weights; every rank's params against it."""
+    import dataclasses
+
+    from repro_torch import tree as TT
+    from repro_torch.configs.registry import _gnn_module, gnn_train_step
+    from repro_torch.data.graphs import to_device
+    from repro_torch.optim.adamw import adamw_init
+
+    out = {}
+    for arch, nodes in (("meshgraphnet", TRAIN_MGN_NODES),
+                        ("graphcast", XRANK_GC_NODES)):
+        cfg, g, _ = xrank_graph(arch, nodes)
+        one = dataclasses.replace(cfg, node_spec=(), shuffle_gather=False,
+                                  compute_dtype=torch.float32)
+        mod = _gnn_module(arch)
+        params = mod.init_params(torch.Generator(device=dev)
+                                 .manual_seed(XRANK_GNN_SEED + 1), one)
+        step = gnn_train_step(mod, one, train_opt())
+        new, _, m, ms = timed_step(step, params, adamw_init(params),
+                                   to_device(g, dev))
+        worst = 0.0
+        for rec in recs:
+            got = rec["gnn"][arch]
+            err = abs(got["grad_norm"] - m["grad_norm"]) / m["grad_norm"]
+            check(err <= TRAIN_GNN_GNORM_RTOL, f"{arch} rank {rec['rank']}: "
+                  f"grad_norm {got['grad_norm']} vs {m['grad_norm']}")
+            worst = max(worst, tree_rel_err(
+                f"{arch} rank {rec['rank']}",
+                [a.to(dev) for a in got["params"]], new, TRAIN_GNN_RTOL,
+                TRAIN_GNN_LEAF_RTOL))
+        moved = sum(float((a - b).float().norm()) ** 2 for a, b in zip(
+            TT.leaves(new), TT.leaves(params))) ** 0.5
+        out[arch] = {"one_card_step_ms": round(ms, 3),
+                     "grad_norm_rel_err": round(err, 9),
+                     "params_rel_err": worst,
+                     "step_rel_size": moved / sum(
+                         float(w.float().norm()) ** 2
+                         for w in TT.leaves(new)) ** 0.5}
+        del params, new
+        torch.cuda.empty_cache()
+    log(f"train (d) GNN steps across ranks vs one card: {out}")
+    return out
+
+
+def deepfm_train_batch() -> dict:
+    from repro_torch.configs.registry import RECSYS_SHAPES
+    from repro_torch.data.recsys import CTRPipeline
+
+    cfg = arch_config("deepfm")
+    return CTRPipeline(cfg.n_sparse, cfg.rows_per_field,
+                       RECSYS_SHAPES["train_batch"]["batch"]).batch_at(0)
+
+
+def deepfm_train_rank_runs(ranks) -> dict:
+    """(e) on one rank: DeepFM at its published config, the tables'
+    rows over the 4 ranks of (1, 4), m and v by ZeRO-1 (`_opt_specs`),
+    one step on its quarter of train_batch; the rows the batch updates
+    here and a sample of the rest, after the step."""
+    from repro_torch import tree as TT
+    from repro_torch.configs.registry import _opt_specs, deepfm_train_step
+    from repro_torch.core import specs as S
+    from repro_torch.models.recsys import deepfm as D
+    from repro_torch.optim.adamw import adamw_init
+
+    dev, world, r = ranks.device, ranks.world_size, ranks.rank
+    cfg = arch_config("deepfm")
+    specs = D.param_specs(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    full = D.init_params(torch.Generator(device=dev).manual_seed(DEEPFM_SEED),
+                         cfg)
+    params = {k: (v.clone() if k in ("table", "fm_w") else v)
+              for k, v in D.shard_params(full, ranks, cfg).items()}
+    del full
+    torch.cuda.empty_cache()
+    state = adamw_init(params, specs, ranks)
+    whole = D.init_params(None, cfg, device="meta")
+    mv = _opt_specs(specs, whole, ranks.axis_size("data"))["m"]
+    m_want = [S.local_shape(x.shape, s, ranks) for x, s in zip(
+        TT.leaves(whole), S.spec_leaves(mv, whole))]
+    m_local = [tuple(x.shape) for x in TT.leaves(state["m"])]
+    check(m_local == m_want, f"deepfm rank {r}: m {m_local}, _opt_specs "
+          f"{m_want}")
+    batch = deepfm_train_batch()
+    b = batch["ids"].shape[0] // world
+    mine = {k: torch.from_numpy(v[r * b:(r + 1) * b]).to(dev)
+            for k, v in batch.items()}
+    step = deepfm_train_step(cfg, train_opt(), ranks=ranks)
+    counted = CollectiveBytes()
+    new, _, m, ms = timed_step(step, params, state, mine, counted)
+    rows = params["table"].shape[0]
+    flat = D._flat_ids(torch.from_numpy(batch["ids"]), cfg).long()
+    hit = torch.unique(flat[(flat >= r * rows) & (flat < (r + 1) * rows)])
+    other = torch.randint(0, rows, (DEEPFM_TRAIN_SAMPLE,),
+                          generator=torch.Generator().manual_seed(r)) + r * rows
+    keep = torch.cat([hit, other]).to(dev)
+    rec = {"rows": keep.cpu(), "hit_rows": hit.numel(),
+           "table": new["table"][keep - r * rows].cpu(),
+           "fm_w": new["fm_w"][keep - r * rows].cpu(),
+           "mlp": [x.cpu() for x in TT.leaves(new["mlp"])],
+           "grad_norm": m["grad_norm"], "step_ms": round(ms, 3),
+           "table_rows_per_rank": rows, "m_local": m_local,
+           "collective_bytes": counted.bytes, "remote_bytes": counted.remote,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del params, new, state
+    torch.cuda.empty_cache()
+    log(f"rank {r} deepfm train step: "
+        f"{ {k: v for k, v in rec.items() if not isinstance(v, (torch.Tensor, list))} }")
+    return rec
+
+
+def deepfm_train_reference(dev, recs: list) -> dict:
+    """(e)'s reference: the one-process step on the card on the whole
+    batch; every rank's rows and the dense weights against it."""
+    from repro_torch import tree as TT
+    from repro_torch.configs.registry import deepfm_train_step
+    from repro_torch.models.recsys import deepfm as D
+    from repro_torch.optim.adamw import adamw_init
+
+    cfg = arch_config("deepfm")
+    params = D.init_params(torch.Generator(device=dev)
+                           .manual_seed(DEEPFM_SEED), cfg)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in deepfm_train_batch().items()}
+    new, _, m, ms = timed_step(deepfm_train_step(cfg, train_opt()), params,
+                               adamw_init(params), batch)
+    worst = {"table": 0.0, "fm_w": 0.0, "mlp": 0.0}
+    for rec in recs:
+        got = rec["deepfm"]
+        keep = got["rows"].to(dev)
+        pairs = [(name, got[name], new[name][keep])
+                 for name in ("table", "fm_w")] + [
+            ("mlp", a, w) for a, w in zip(got["mlp"], TT.leaves(new["mlp"]))]
+        for name, a, w in pairs:
+            worst[name] = max(worst[name], float_err(
+                a.to(dev), w, 0.0, DEEPFM_TRAIN_ATOL))
+        err = abs(got["grad_norm"] - m["grad_norm"]) / m["grad_norm"]
+        check(err <= DEEPFM_TRAIN_GNORM_RTOL, f"deepfm rank {rec['rank']}: "
+              f"grad_norm {got['grad_norm']} vs {m['grad_norm']}")
+    out = {"one_card_step_ms": round(ms, 3), "max_abs_err": worst,
+           "grad_norm_rel_err": err,
+           "rows_held": sum(rec["deepfm"]["rows"].numel() for rec in recs),
+           "hit_rows": sum(rec["deepfm"]["hit_rows"] for rec in recs)}
+    del params, new
+    torch.cuda.empty_cache()
+    log(f"train (e) deepfm across ranks vs one card: {out}")
+    return out
+
+
+def train_rank_prog(ranks, nccl: bool, seq: int, ckpt_dir: str) -> dict:
+    """Phase 14 on one rank: (a)-(e) in turn; with `nccl`, (b) alone."""
+    out, walls = {"rank": ranks.rank}, {}
+    parts = [("gemma", lambda: gemma_rank_runs(ranks, seq, ckpt_dir, nccl))]
+    if not nccl:
+        parts = [("mesh_lm", lambda: mesh_lm_rank_runs(ranks)), *parts,
+                 ("qwen", lambda: qwen_rank_runs(ranks)),
+                 ("gnn", lambda: gnn_train_rank_runs(ranks)),
+                 ("deepfm", lambda: deepfm_train_rank_runs(ranks))]
+    for name, run in parts:
+        t = time.perf_counter()
+        out[name] = run()
+        walls[name] = round(time.perf_counter() - t, 1)
+    out["wall_s"] = walls
+    return out
+
+
+def train_ranks_phase(dev, nccl: bool = False) -> dict:
+    """Phase 14: training across ranks. One card: 4 ranks sharing it over
+    gloo, spawned once, every part's meshes built on the one group
+    (`RankContext.remesh`); `nccl`: one NCCL rank a card on a host of 4,
+    gemma3-1b at train_4k's sequence. The one-process references run in
+    this process after the ranks are gone."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count() if nccl else TRANKS
+    check(world == TRANKS, f"phase 14 needs {TRANKS} ranks, not {world}")
+    seq = GEMMA_X_NCCL_SEQ if nccl else GEMMA_X_SEQ
+    out = {"world": world, "backend": "nccl" if nccl else "gloo",
+           "gemma_seq": seq}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=checkpoint_root()) as ckpt:
+        recs = spawn_ranks(world, "train_rank_prog", nccl, seq, ckpt,
+                           device=None if nccl else str(dev),
+                           backend=None if nccl else "gloo",
+                           axis_sizes=(1, world), axis_names=TRAIN_AXES)
+        out["ranks_wall_s"] = round(time.perf_counter() - t0, 1)
+        out["gemma"] = gemma_reference(dev, recs, seq, ckpt, nccl)
+    if not nccl:
+        out["mesh_lm"] = mesh_lm_reference(dev, recs)
+        out["qwen"] = qwen_reference(dev, recs)
+        out["gnn"] = gnn_train_reference(dev, recs)
+        out["deepfm"] = deepfm_train_reference(dev, recs)
+        out["segment_reduce_launches"] = sum(r["gnn"]["launches"]
+                                             for r in recs)
+        check(out["segment_reduce_launches"] > 0,
+              "phase 14: segment_reduce was not launched")
+        for rec in recs:
+            rec.pop("mesh_lm")
+            for arch in ("meshgraphnet", "graphcast"):
+                rec["gnn"][arch].pop("params")
+            for k in ("rows", "table", "fm_w", "mlp"):
+                rec["deepfm"].pop(k)
+    out["ranks"] = recs
+    out["seconds"] = round(time.perf_counter() - t0, 1)
+    log(f"phase 14 (training across {world} ranks, {out['backend']}): "
+        f"{out['seconds']} s; segment_reduce launched "
+        f"{out.get('segment_reduce_launches', 0)} times on the ranks")
+    return out
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -4480,6 +5233,13 @@ def main(argv: list[str]) -> int:
                     help="the build and phase 13 with one NCCL rank a card "
                     "(several cards), MeshGraphNet at ogb_products' dims; "
                     "no result line")
+    ap.add_argument("--train-ranks-only", action="store_true",
+                    help="the build and phase 14 (training across 4 gloo "
+                    "ranks on one card) alone; no result line")
+    ap.add_argument("--train-ranks-nccl", action="store_true",
+                    help="the build and phase 14's gemma3-1b part with one "
+                    "NCCL rank a card (4 cards) at train_4k's sequence; no "
+                    "result line")
     ap.add_argument("--nccl-only", action="store_true",
                     help="phase 9's NCCL run alone (on a host of several "
                     "cards: one rank per card at scale 1000) with the "
@@ -4536,6 +5296,12 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"exchanges": out}, default=str), flush=True)
         print(card, flush=True)
         return 0
+    if args.train_ranks_only or args.train_ranks_nccl:
+        out = train_ranks_phase(dev, nccl=args.train_ranks_nccl)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"train_ranks": out}, default=str), flush=True)
+        print(card, flush=True)
+        return 0
     if args.nccl_only:
         out = nccl_only(dev)
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -4560,6 +5326,7 @@ def main(argv: list[str]) -> int:
     gnn = gnn_phase(dev)
     train = train_phase(dev)
     exchanges = exchange_phase(dev)
+    train_ranks = train_ranks_phase(dev)
     for name, row in rows.items():
         row["launches"] = (full["launches"] | api_launches).get(name, 0)
         check(row["launches"] > 0, f"kernel {name} was not launched")
@@ -4568,17 +5335,20 @@ def main(argv: list[str]) -> int:
         "kernel_api": seg["launches"],
         "gnn_recsys_forward": gnn["segment_reduce_launches"],
         "gnn_recsys_train": train["segment_reduce_launches"],
-        "model_exchanges": exchanges["segment_reduce_launches"]}
+        "model_exchanges": exchanges["segment_reduce_launches"],
+        "training_across_ranks": train_ranks["segment_reduce_launches"]}
     seg["launches"] += (gnn["segment_reduce_launches"]
                         + train["segment_reduce_launches"]
-                        + exchanges["segment_reduce_launches"])
+                        + exchanges["segment_reduce_launches"]
+                        + train_ranks["segment_reduce_launches"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     full = {k: full[k] for k in ("launches", "peak_bytes", "queries")}
     del sharded["store"]
     print(json.dumps({"full_scale": full, "matrix": matrix,
                       "serving": serving, "sharded": sharded,
                       "ranks": ranks, "lm": lm, "gnn": gnn, "train": train,
-                      "exchanges": exchanges}, default=str),
+                      "exchanges": exchanges, "train_ranks": train_ranks},
+                     default=str),
           flush=True)
     print(json.dumps({"stacked": stacked}), flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

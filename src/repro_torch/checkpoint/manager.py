@@ -13,8 +13,15 @@ the time and the caller's extra fields (the trainer's pipeline state).
 free or replace the device tensors at once); with `async_write` a thread
 then writes the files, one writer in flight at a time.
 `restore(step, like_tree, device=...)` loads into `like_tree`'s structure
-and dtypes on one device (the reference's `shardings`, which re-shard
-onto another mesh, have no counterpart on one device).
+and dtypes.
+
+Across ranks (`ranks` and a spec tree `specs`, each leaf this rank's
+block; `core/specs.py`) every rank calls `save` together: each leaf is
+all-gathered whole, one leaf at a time, and rank 0 writes the same files
+as one process; every rank waits for the write (`wait`, which ends in a
+barrier). `restore(..., ranks=, specs=)` reads the whole leaves on every
+rank and keeps its blocks: the reference's elastic `shardings=`, so a
+checkpoint written on one mesh, or by one process, restores on another.
 """
 from __future__ import annotations
 
@@ -26,8 +33,10 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as TT
+from repro_torch.core import specs as S
 
 
 def _to_host(t) -> np.ndarray:
@@ -62,6 +71,7 @@ class CheckpointManager:
         self.async_write = async_write
         self._pending: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._ranks = None  # the rank context of the last save across ranks
         os.makedirs(directory, exist_ok=True)
 
     # -- paths ---------------------------------------------------------
@@ -83,12 +93,28 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     # -- save ------------------------------------------------------------
-    def save(self, step: int, tree, extra_meta: dict | None = None) -> None:
+    def save(self, step: int, tree, extra_meta: dict | None = None, *,
+             ranks=None, specs=None) -> None:
         """Blocking or async depending on construction. The tree is
         snapshotted to host BEFORE returning, so the caller may free or
-        replace device tensors immediately."""
+        replace device tensors immediately. With `ranks` and `specs`
+        (every rank calls it) the leaves are this rank's blocks, gathered
+        whole one at a time; rank 0 writes."""
         self.wait()  # one writer in flight at a time
-        host = [_to_host(x) for x in TT.leaves(tree)]
+        lead = ranks is None or ranks.rank == 0
+        if ranks is None:
+            host = [_to_host(x) for x in TT.leaves(tree)]
+        else:
+            self._ranks = ranks
+            host = []
+            for x, spec in zip(TT.leaves(tree), S.spec_leaves(specs, tree)):
+                whole = (S.gather(x, spec, ranks)
+                         if isinstance(x, torch.Tensor) else x)
+                if lead:
+                    host.append(_to_host(whole))
+                del whole
+        if not lead:
+            return
         meta = {
             "step": step,
             "treedef": " ".join(TT.paths(tree)),
@@ -125,10 +151,13 @@ class CheckpointManager:
         self._prune()
 
     def wait(self) -> None:
-        """Wait for the writer in flight; a failed write raises here."""
+        """Wait for the writer in flight; a failed write raises here.
+        After a save across ranks every rank waits for rank 0's write."""
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._ranks is not None:
+            dist.barrier(group=self._ranks.control)
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("checkpoint write failed") from err
@@ -139,19 +168,36 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # -- restore -----------------------------------------------------------
-    def restore(self, step: int, like_tree, device=None):
+    def restore(self, step: int, like_tree, device=None, *, ranks=None,
+                specs=None):
         """Restore into the structure and dtypes of `like_tree`, on
-        `device` (default: each leaf's own device in `like_tree`)."""
+        `device` (default: each leaf's own device in `like_tree`). With
+        `ranks` and `specs` each leaf of `like_tree` is this rank's block
+        and gets its block of the whole stored leaf, whatever mesh (or one
+        process) wrote it."""
         d = self._step_dir(step)
-        with np.load(os.path.join(d, "arrays.npz")) as z:
-            host = [z[f"a{i}"] for i in range(len(z.files))]
         leaves = TT.leaves(like_tree)
-        assert len(leaves) == len(host), (
-            f"checkpoint has {len(host)} leaves, model wants {len(leaves)}"
-        )
-        new = [_from_host(h, leaf, device if device is not None
-                          else getattr(leaf, "device", "cpu"))
-               for h, leaf in zip(host, leaves)]
+        cut = (S.spec_leaves(specs, like_tree) if ranks is not None
+               else [None] * len(leaves))
+        new = []
+        with np.load(os.path.join(d, "arrays.npz")) as z:
+            assert len(leaves) == len(z.files), (
+                f"checkpoint has {len(z.files)} leaves, model wants "
+                f"{len(leaves)}"
+            )
+            for i, (leaf, spec) in enumerate(zip(leaves, cut)):
+                dev = (device if device is not None
+                       else getattr(leaf, "device", "cpu"))
+                if spec is None:
+                    new.append(_from_host(z[f"a{i}"], leaf, dev))
+                    continue
+                block = S.shard(_from_host(z[f"a{i}"], leaf, "cpu"), spec,
+                                ranks)
+                if isinstance(leaf, torch.Tensor) and \
+                        tuple(block.shape) != tuple(leaf.shape):
+                    raise ValueError(f"leaf {i}: block {tuple(block.shape)}"
+                                     f", the model's {tuple(leaf.shape)}")
+                new.append(block.to(dev))
         return TT.unflatten(like_tree, new)
 
     def meta(self, step: int) -> dict:

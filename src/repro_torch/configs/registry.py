@@ -1,9 +1,11 @@
 """Arch × shape registry: arch id -> config module (each holds `CONFIG`
 and `FAMILY`), the input shapes of each family, the GNN shape bindings
 (`_gnn_dims`, `_gnn_cfg_for_shape`, `_gnn_model_flops`) that size a (gnn
-arch, shape) cell, `DEFAULT_OPT`, and the GNN and DeepFM train steps of
-the reference's cells (`gnn_train_step`, `deepfm_train_step`).
-`build_cell` and its per-family cells are not ported yet."""
+arch, shape) cell, `DEFAULT_OPT`, the optimizer state's specs
+(`zero1_spec`, `_opt_specs`), and the GNN and DeepFM train steps of the
+reference's cells (`gnn_train_step`, `deepfm_train_step`), on one
+process or across ranks. `build_cell` and its per-family cells are not
+ported yet."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,6 +14,7 @@ import importlib
 import torch
 
 from repro_torch import tree as TT
+from repro_torch.core import specs as S
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
 ARCHS: dict[str, str] = {
@@ -73,6 +76,11 @@ def lm_layer_count(arch: str) -> int:
 
 
 DEFAULT_OPT = AdamWConfig()
+
+# the reference's sharding helpers (`registry.py:110-128`), on the port's
+# spec tuples: ZeRO-1's "data" cut of m and v (core/specs.py)
+zero1_spec = S.zero1_spec
+_opt_specs = S.opt_specs
 
 
 def _all_axes(multi_pod: bool) -> tuple[str, ...]:
@@ -179,28 +187,76 @@ def _gnn_model_flops(arch: str, cfg, dims: dict) -> float:
 # Train steps (the reference's GNN and DeepFM cells)
 # ---------------------------------------------------------------------------
 
-def gnn_train_step(mod, cfg, opt_cfg: AdamWConfig = DEFAULT_OPT):
+def gnn_train_step(mod, cfg, opt_cfg: AdamWConfig = DEFAULT_OPT, ranks=None):
     """train_step(params, opt_state, graph) -> (params, opt_state, metrics):
     the gradient of `mod.loss_fn` over every param, then AdamW (metrics:
-    grad_norm, lr)."""
+    grad_norm, lr).
+
+    `ranks` (MeshGraphNet or GraphCast with `cfg.node_spec`, the graph
+    this rank's shard from `data.graphs.shard_graph`, the params and the
+    opt state whole on every rank): each rank's loss is its nodes' part
+    of the global masked MSE (its squared errors over the global count),
+    so the ranks' parts sum to the one-process loss; a param's gradient
+    is the sum of the ranks' (their mean, times the world), and every
+    rank takes the same AdamW step."""
+    if ranks is None:
+        def train_step(params, opt_state, graph):
+            grads = TT.grad(mod.loss_fn, params, graph, cfg, has_aux=False)
+            return adamw_update(opt_cfg, grads, opt_state, params)
+
+        return train_step
+
+    group = ranks.group(tuple(ranks.mesh.axis_names))
+
+    def loss(params, g):
+        pred = mod.apply(params, g, cfg, ranks=ranks)
+        err = torch.where(g.node_mask[:, None],
+                          (pred - g.extras["targets"]) ** 2, 0.0)
+        count = S.all_reduce_(g.node_mask.sum().reshape(1), group)
+        return err.sum() / (count[0] * pred.shape[-1]).clamp_min(1)
+
     def train_step(params, opt_state, graph):
-        grads = TT.grad(mod.loss_fn, params, graph, cfg, has_aux=False)
+        grads = TT.grad(loss, params, graph, has_aux=False)
+        grads = S.reduce_grads(grads, TT.map(lambda _: (), params), ranks)
         return adamw_update(opt_cfg, grads, opt_state, params)
 
     return train_step
 
 
 def deepfm_train_step(cfg, opt_cfg: AdamWConfig = DEFAULT_OPT,
-                      lookup_fn=None):
+                      lookup_fn=None, ranks=None):
     """train_step(params, opt_state, batch) -> (params, opt_state, metrics)
     for DeepFM: the gradient of `bce_loss` on batch {"ids" (B, F) int32,
     "labels" (B,) float32} (the tables get dense gradients, as
-    `jax.grad` gives), then AdamW."""
+    `jax.grad` gives), then AdamW.
+
+    `ranks` (a ("data", "model") mesh): the params are this rank's by
+    `deepfm.param_specs` (`shard_params`: the table and fm_w row-cut over
+    "model"), the opt state `adamw_init(params, param_specs, ranks)`'s (m
+    and v by ZeRO-1), the batch this rank's rows (the global batch cut
+    over every axis jointly, as the reference's lookup takes its ids),
+    read through `make_sharded_lookup`. Each rank seeds its backward
+    with 1 / world of its rows' mean loss; the tables' gradients come
+    back through the lookup's exchanges to the rows' owners and are
+    summed over "data", the dense MLP's and the bias's over every axis
+    (the mean over the ranks' batches)."""
     from repro_torch.models.recsys import deepfm as D
 
+    specs = None
+    if ranks is not None:
+        lookup_fn = D.make_sharded_lookup(ranks)
+        specs = D.param_specs(cfg)
+
+    def loss(params, ids, labels):
+        out = D.bce_loss(params, ids, labels, cfg, lookup_fn)
+        return out if ranks is None else out / ranks.world_size
+
     def train_step(params, opt_state, batch):
-        grads = TT.grad(D.bce_loss, params, batch["ids"], batch["labels"],
-                        cfg, lookup_fn, has_aux=False)
-        return adamw_update(opt_cfg, grads, opt_state, params)
+        grads = TT.grad(loss, params, batch["ids"], batch["labels"],
+                        has_aux=False)
+        if ranks is not None:
+            grads = S.reduce_grads(grads, specs, ranks)
+        return adamw_update(opt_cfg, grads, opt_state, params, specs=specs,
+                            ranks=ranks)
 
     return train_step

@@ -203,27 +203,70 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _AllReduceSum.apply(x, group)
 
 
+# The replicated pair: a tensor every rank of the group holds alike, cut
+# into its ranks' slices and put back together. Their backwards take the
+# loss downstream of the pair to be the same on every rank (each rank's
+# gradient of the replicated tensor is the whole gradient, not a part):
+# the gather's backward is then the slice this rank's input made, and the
+# split's the all-gather of the slices' gradients. Code whose replicated
+# tensors carry parts of their gradient (every rank's loss counting once
+# in the total, as the collectives above take it) narrows the tensor to
+# its slice and gathers with `all_gather_rows` instead: the narrow's
+# backward zero-pads, the gather's reduce-scatters.
+
+
+class _SplitReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        size, rank = dist.get_world_size(group), dist.get_rank(group)
+        if x.shape[dim] % size:
+            raise ValueError(f"dim {dim} of {x.shape[dim]} does not split "
+                             f"over {size} ranks")
+        n = x.shape[dim] // size
+        return x.narrow(dim, rank * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        whole = _gather_rows(grad.movedim(ctx.dim, 0), ctx.group)
+        return whole.movedim(0, ctx.dim), None, None
+
+
+def split_replicated(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's slice along `dim` of `x`, a tensor that is the same on
+    every rank of `group` (rank j gets the j-th of size even slices). The
+    backward all-gathers the slices' gradients: every rank gets the
+    gradient of the whole `x`."""
+    return _SplitReplicated.apply(x, group, dim)
+
+
 class _GatherReplicated(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
         return _gather_rows(x.movedim(dim, 0), group).movedim(0, dim)
 
     @staticmethod
     def backward(ctx, grad):
-        raise RuntimeError(
-            "gather_replicated carries no gradient: its output is "
-            "replicated over the group, and neither a reduce-scatter (too "
-            "large by the group size) nor the local slice (the upstream "
-            "replicated work would then miss the other slices) is the "
-            "gradient of a replicated loss; training across the expert "
-            "group is not ported yet (ROADMAP Queue 1 item 2.4)")
+        rank = dist.get_rank(ctx.group)
+        return grad.narrow(ctx.dim, rank * ctx.n, ctx.n).clone(), None, None
 
 
 def gather_replicated(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Every rank's `x` concatenated along `dim` in rank order, for an
     output that every rank then uses alike (the MoE block's slices of a
-    replicated sequence). Forward only: a backward through it raises."""
+    replicated sequence). The backward is the slice of the gradient that
+    this rank's `x` made."""
     return _GatherReplicated.apply(x, group, dim)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over `group` of every rank's `x` (a copy, with
+    no gradient: a logsumexp's shift)."""
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    with _host_staged(out, group):
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
 
 
 # -- the exchanges ------------------------------------------------------------

@@ -91,6 +91,21 @@ class RankContext:
                      + self.device_mesh.get_local_rank(a))
         return index
 
+    def remesh(self, axis_sizes, axis_names) -> "RankContext":
+        """The same ranks over another mesh (its groups built now, by every
+        rank together): one launch can run several layouts. The
+        context `init_ranks` returned stays the one to `close`."""
+        from torch.distributed.device_mesh import init_device_mesh
+
+        sizes = tuple(map(int, axis_sizes))
+        if math.prod(sizes) != self.world_size:
+            raise ValueError(f"mesh {sizes} does not hold the "
+                             f"{self.world_size} ranks")
+        mesh = init_device_mesh(self.device.type, sizes,
+                                mesh_dim_names=tuple(axis_names))
+        return RankContext(self.rank, self.world_size, self.local_rank,
+                           self.device, self.backend, mesh, self.control)
+
     def broadcast(self, obj=None):
         """Rank 0's `obj` on every rank, over the control group (pickled;
         only this program's own ranks send)."""

@@ -3,7 +3,8 @@ deterministic, step-addressed, checkpointable.
 
 Batches are a pure function of (seed, step), so a restarted job regenerates
 the exact stream — the pipeline 'state' in a checkpoint is just the step
-counter. A background thread prefetches the next batch (host-side overlap
+counter. Across data ranks each rank takes its rows of the global batch
+(`data_rows`), so the ranks together see the one-process stream. A background thread prefetches the next batch (host-side overlap
 with device compute).
 """
 from __future__ import annotations
@@ -42,6 +43,20 @@ class TokenPipeline:
 
     def load_state_dict(self, st: dict) -> None:
         self.seed, self.step = int(st["seed"]), int(st["step"])
+
+
+def data_rows(batch: dict, index: int, count: int) -> dict:
+    """Data rank `index` of `count`'s rows of a global batch: the
+    contiguous block of B / count rows, so the ranks' blocks, stacked in
+    rank order, are the one-process batch."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % count:
+            raise ValueError(f"a batch of {v.shape[0]} rows does not split "
+                             f"over {count} data ranks")
+        n = v.shape[0] // count
+        out[k] = v[index * n:(index + 1) * n]
+    return out
 
 
 class Prefetcher:

@@ -9,15 +9,25 @@ online-softmax (never materializes S×S); MoE layers use the MapSQ
 sort-based dispatch (models/moe.py) at train / prefill and the one-hot
 einsum at decode, their experts sharded over the ranks of a
 `RankContext`'s "model" axis when one is passed (expert parallelism:
-`init_params(ranks=)` or `shard_params`, then `ranks=` to the forward and
+`init_params(ranks=)` or `shard_params(..., serve_specs(cfg))`, then `ranks=` to the forward and
 the serving steps). With `cfg.remat` a training forward rematerializes
 each block in the backward (`torch.utils.checkpoint`, as the reference's
 `jax.checkpoint` of the scanned block).
 
 Training: `ce_loss` / `chunked_ce_loss`, `make_loss_fn` and
 `make_train_step` (gradients by `torch.autograd.grad` over the param
-leaves, optional micro-batch accumulation in float32, then AdamW), on one
-device: the train step across ranks is not ported yet.
+leaves, optional micro-batch accumulation in float32, then AdamW). Across
+the ranks of a ("data", "model") mesh (`make_train_step(ranks=)`) the
+params are plain local blocks cut by `param_specs` (`shard_params(...,
+specs)`) and the forward is the reference's sharded one written out with
+`core.distributed`'s collectives (`MeshLayout`): the batch cut over the
+data axes, Megatron tensor parallelism on "model" (the attention's heads
+and the FFN's hidden units, the embedding and head by vocab, the loss's
+logsumexp across the vocab shards), the sequence cut over "model"
+between blocks under `cfg.seq_shard`, the MoE block's tokens routed
+expert-parallel from the ranks' sequence slices, and under `cfg.fsdp`
+each block's "data"-cut weights all-gathered just before use (again in
+a remat's backward).
 
 Serving: `make_prefill_step` runs the prompt once and exports the post-RoPE
 K/V of every layer; `make_serve_step` decodes one token per sequence
@@ -35,10 +45,12 @@ from typing import TYPE_CHECKING, Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as TT
 from repro_torch.core import distributed as D
+from repro_torch.core import specs as S
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
@@ -74,11 +86,11 @@ class TransformerConfig:
     rope_theta_local: float = 0.0  # gemma3 local layers (0 -> same)
     embed_scale: bool = False  # gemma: x *= sqrt(d_model)
     tied_embeddings: bool = False
-    # distribution: kept so the arch configs copy over unchanged; one
-    # device reads none of them (no mesh, and the layer loop is plain
-    # Python, so there is no scan to unroll)
-    fsdp: bool = False
-    seq_shard: bool = True
+    # distribution: read by the training forward across ranks
+    # (`MeshLayout`); one device reads neither, and the layer loop is
+    # plain Python, so there is no scan to unroll
+    fsdp: bool = False  # "data" cuts on the fs dims (`param_specs`)
+    seq_shard: bool = True  # the sequence cut over "model" between blocks
     remat: bool = True  # rematerialize each block in a training backward
     dtype: Any = torch.bfloat16
     kv_chunk: int = 1024
@@ -162,11 +174,13 @@ def init_params(gen: torch.Generator | None, cfg: TransformerConfig,
     }
     if cfg.is_moe:
         moe0 = M.init_moe_params(gen, d, cfg.moe_settings(), ep, dt, device)
-        moe0 = {k: _local_experts(k, a, ranks, 0)
-                for k, a in moe0._asdict().items()}
+        if ranks is not None:
+            cut = serve_specs(cfg)["blocks"]["moe"]
+            moe0 = M.MoEParams(**{k: S.shard(a, cut[k][1:], ranks)
+                                  for k, a in moe0._asdict().items()})
         blocks["moe"] = {
             k: a.unsqueeze(0).expand((lyr,) + a.shape).clone()
-            for k, a in moe0.items()
+            for k, a in moe0._asdict().items()
         }
     else:
         blocks["ffn"] = {
@@ -184,26 +198,78 @@ def init_params(gen: torch.Generator | None, cfg: TransformerConfig,
     return params
 
 
-def _local_experts(name: str, a: torch.Tensor, ranks, dim: int):
-    """Expert weight `name` cut to this rank's experts along `dim` (the
-    router stays whole); all of it without a rank context."""
-    if ranks is None or name == "router":
-        return a
-    ep, er = ranks.axis_size(EXPERT_AXIS), ranks.axis_index(EXPERT_AXIS)
-    e_local = a.shape[dim] // ep
-    return a.narrow(dim, er * e_local, e_local).clone()
+def shard_params(params: dict, ranks: "RankContext", specs: dict) -> dict:
+    """Whole params (e.g. from `params_from_numpy`, or seeded on every
+    rank alike) as this rank's blocks, every leaf cut by `specs`:
+    `param_specs` (training) or `serve_specs` (serving)."""
+    return S.shard_tree(params, specs, ranks)
 
 
-def shard_params(params: dict, ranks: "RankContext") -> dict:
-    """Whole params (every expert, e.g. from `params_from_numpy`) as this
-    rank's: the MoE expert rows of its coordinate on the expert axis;
-    every other leaf replicated, as it is."""
-    if "moe" not in params["blocks"]:
-        return params
-    blocks = dict(params["blocks"])
-    blocks["moe"] = {k: _local_experts(k, a, ranks, 1)
-                     for k, a in blocks["moe"].items()}
-    return dict(params, blocks=blocks)
+# ---------------------------------------------------------------------------
+# Partition specs (the reference's, as tuples: one axis name, tuple of
+# names or None per dim; see core/specs.py)
+# ---------------------------------------------------------------------------
+
+def dp_axes(multi_pod: bool):
+    return ("pod", "data") if multi_pod else ("data",)
+
+
+def param_specs(cfg: TransformerConfig, multi_pod: bool = False,
+                model_size: int = 1) -> dict:
+    fs = "data" if cfg.fsdp else None
+    kv_shardable = (cfg.n_kv_heads % model_size == 0)
+    kvs = "model" if kv_shardable else None
+    attn = {
+        "wq": (None, fs, "model"),
+        "wk": (None, fs, kvs),
+        "wv": (None, fs, kvs),
+        "wo": (None, "model", fs),
+    }
+    if cfg.qkv_bias:
+        attn.update(bq=(None, "model"), bk=(None, kvs), bv=(None, kvs))
+    if cfg.qk_norm:
+        attn.update(qnorm=(None, None), knorm=(None, None))
+    blocks: dict[str, Any] = {
+        "ln1": (None, None),
+        "ln2": (None, None),
+        "attn": attn,
+    }
+    if cfg.is_moe:
+        blocks["moe"] = {
+            "router": (None, None, None),
+            "we_gate": (None, "model", fs, None),
+            "we_up": (None, "model", fs, None),
+            "we_down": (None, "model", None, fs),
+        }
+    else:
+        blocks["ffn"] = {
+            "w_gate": (None, fs, "model"),
+            "w_up": (None, fs, "model"),
+            "w_down": (None, "model", fs),
+        }
+    specs = {
+        "embed": ("model", fs),
+        "blocks": blocks,
+        "ln_f": (None,),
+    }
+    if not cfg.tied_embeddings:
+        specs["head"] = (fs, "model")
+    return specs
+
+
+def serve_specs(cfg: TransformerConfig) -> dict:
+    """The serving layout: the MoE experts cut over the expert axis,
+    every other leaf whole on every rank."""
+    def whole(node):
+        if isinstance(node, dict):
+            return {k: whole(v) for k, v in node.items()}
+        return ()
+
+    specs = whole(param_specs(cfg))
+    if cfg.is_moe:
+        specs["blocks"]["moe"].update(
+            {k: (None, EXPERT_AXIS) for k in ("we_gate", "we_up", "we_down")})
+    return specs
 
 
 def _leaves(tree: dict):
@@ -284,80 +350,245 @@ def _attn_params(p: dict) -> L.AttnParams:
                         bq=a.get("bq"), bk=a.get("bk"), bv=a.get("bv"))
 
 
-def _embed(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
+class MeshLayout:
+    """How the training forward runs on this rank of a ("data", "model")
+    mesh, its params cut by `specs` (`param_specs`). Written out with the
+    explicit collectives of `core.distributed`, every rank's loss counting
+    once in the total (their convention): a replicated activation's
+    gradient on a rank is its part of the whole, and the leaves' parts
+    are summed over their replica axes after the backward
+    (`specs.reduce_grads`).
+
+    - data axes: each rank holds its rows of the batch;
+    - "model" (Megatron tensor parallelism): wq, wk, wv and w_gate, w_up
+      cut by columns (the rank's heads and hidden units), wo and w_down
+      by rows, one all-reduce after each (a reduce-scatter along the
+      sequence under `seq_shard`, whose x is cut on the sequence between
+      blocks and all-gathered before attention and the FFN); wk / wv
+      whole when the KV heads do not split (`kv_shardable`), each rank
+      keeping the KV heads its query heads read; the embedding cut by
+      vocab (the owned rows gathered, then summed), the head by vocab
+      (`ce_loss`'s logsumexp across the shards); the MoE block
+      expert-parallel from the ranks' sequence slices;
+    - `fsdp`: a weight's "data" cut all-gathered just before its use,
+      with the backward reduce-scattering its gradient to the block."""
+
+    def __init__(self, cfg: TransformerConfig, ranks: "RankContext",
+                 specs: dict):
+        names = tuple(ranks.mesh.axis_names)
+        if EXPERT_AXIS not in names or "data" not in names:
+            raise ValueError(f"a training mesh over (data, model), not "
+                             f"{names}")
+        self.cfg, self.ranks, self.specs = cfg, ranks, specs
+        self.model = ranks.axis_size(EXPERT_AXIS)
+        self.m = ranks.axis_index(EXPERT_AXIS)
+        self.mgroup = ranks.group(EXPERT_AXIS)
+        self.dp = dp_axes(False)
+        self.n_data = ranks.axis_size(self.dp)
+        self.dgroup = ranks.group(self.dp)
+        self.seq = cfg.seq_shard and self.model > 1
+        token_axes = tuple(a for a in names if ranks.axis_size(a) > 1
+                           and (a in self.dp or (a == EXPERT_AXIS
+                                                 and self.seq)))
+        self.token_group = ranks.group(token_axes) if token_axes else None
+        self.token_ranks = ranks.axis_size(token_axes) if token_axes else 1
+        h, kv = cfg.n_heads, cfg.n_kv_heads
+        if h % self.model:
+            raise ValueError(f"{h} heads do not split over {self.model} "
+                             "model ranks")
+        self.n_q = h // self.model
+        kv_cut = EXPERT_AXIS in S.axes_of(specs["blocks"]["attn"]["wk"])
+        g = h // kv
+        if kv_cut:
+            self.n_kv, self.kv_keep = kv // self.model, None
+        elif g % self.n_q == 0:  # this rank's query heads read one KV head
+            self.n_kv, self.kv_keep = kv, (self.m * self.n_q) // g
+        else:
+            raise ValueError(f"{h} query heads over {kv} KV heads do not "
+                             f"split over {self.model} model ranks")
+
+    @property
+    def vocab_start(self) -> int:
+        return self.m * (self.cfg.padded_vocab // self.model)
+
+    def full(self, x: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """`x` with its "data" (FSDP) cuts all-gathered; its backward
+        reduce-scatters the gradient back to this rank's block."""
+        if self.n_data == 1:
+            return x
+        for dim, e in enumerate(S.norm(spec, x.dim())):
+            if "data" in S.entry_axes(e):
+                x = S.gather_dim(x, self.ranks.group("data"), dim, grad=True)
+        return x
+
+    def layer_weights(self, p: dict) -> dict:
+        """One layer's weights (views without the layer axis) with their
+        FSDP cuts gathered."""
+        def walk(node, spec):
+            if isinstance(node, dict):
+                return {k: walk(v, spec[k]) for k, v in node.items()}
+            return self.full(node, tuple(spec)[1:])
+
+        return walk(p, self.specs["blocks"])
+
+    def enter(self, h: torch.Tensor) -> torch.Tensor:
+        """The whole sequence before a tensor-parallel layer: all-gathered
+        over "model" under seq_shard (backward: reduce-scatter)."""
+        if not self.seq:
+            return h
+        return S.gather_dim(h, self.mgroup, 1, grad=True)
+
+    def exit(self, y: torch.Tensor) -> torch.Tensor:
+        """The sum of the ranks' partial outputs of a tensor-parallel
+        layer: this rank's sequence slice of it under seq_shard (a
+        reduce-scatter), else all of it (an all-reduce)."""
+        if self.model == 1:
+            return y
+        if self.seq:
+            return D.reduce_scatter_rows(y.movedim(1, 0),
+                                         self.mgroup).movedim(0, 1)
+        return D.all_reduce_sum(y, self.mgroup)
+
+    def data_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the data axes of a 0-d metric (no gradient)."""
+        if self.n_data == 1:
+            return x
+        return S.all_reduce_(x.detach().clone().reshape(1),
+                              self.dgroup).reshape(()) / self.n_data
+
+
+def _embed(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+           lay: "MeshLayout | None" = None):
     """Token embeddings, scaled by sqrt(d_model) ROUNDED TO THE CONFIG'S
-    DTYPE as the reference does (34.0 for gemma3-1b in bf16)."""
-    x = params["embed"][tokens.long()].to(cfg.dtype)
+    DTYPE as the reference does (34.0 for gemma3-1b in bf16). The rows are
+    read by `F.embedding`, whose backward sums each row's gradient in
+    float32: an index's backward on the card sums a bf16 table's in bf16,
+    and a frequent token's row loses its small terms.
+    With `lay` the table is cut by vocab: each rank reads the tokens it
+    owns (zero rows for the rest) and the rows are summed over "model"
+    (this rank's sequence slice of the sum under seq_shard)."""
+    if lay is None:
+        x = F.embedding(tokens.long(), params["embed"]).to(cfg.dtype)
+    else:
+        emb = lay.full(params["embed"], lay.specs["embed"])
+        if lay.model == 1:
+            x = F.embedding(tokens.long(), emb)
+        else:
+            t = tokens.long() - lay.vocab_start
+            own = (t >= 0) & (t < emb.shape[0])
+            rows = F.embedding(t.clamp(0, emb.shape[0] - 1), emb)
+            x = lay.exit(torch.where(own[..., None], rows, 0.0))
+        x = x.to(cfg.dtype)
     if cfg.embed_scale:
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype))
     return x
 
 
 def _ffn(p: dict, h: torch.Tensor, cfg: TransformerConfig, *,
-         decode: bool, ranks=None, count_dropped: bool = False):
+         decode: bool, ranks=None, count_dropped: bool = False,
+         lay: "MeshLayout | None" = None):
     """The block's FFN: SwiGLU, or MoE (the sort-based dispatch at
-    prefill, the one-hot einsum at decode). With `ranks` the experts are
-    sharded over their expert axis and `h` is the same on every rank:
-    at prefill each rank takes its S / ep slice of the sequence through
-    the expert-parallel layer and the outputs are gathered back along S,
-    as the reference's shard_map does (forward only: a gradient through
-    that gather raises). Returns (y, n): n is the MoE prefill's capacity
-    drops on this rank with `count_dropped` (a 0-d int64 tensor), else
-    None."""
+    prefill, the one-hot einsum at decode). With `ranks` (serving) the
+    experts are sharded over their expert axis and `h` is the same on
+    every rank: at prefill each rank takes its S / ep slice of the
+    sequence through the expert-parallel layer and the outputs are
+    gathered back along S, as the reference's shard_map does. With `lay`
+    (training across ranks) the dense FFN is tensor-parallel and the MoE
+    layer takes this rank's sequence slice (`h` already is one under
+    seq_shard; else the replicated pair cuts and regathers it). Returns
+    (y, n): n is the MoE prefill's capacity drops on this rank with
+    `count_dropped` (a 0-d int64 tensor), else None."""
     if not cfg.is_moe:
-        return L.swiglu_ffn(L.FFNParams(**p["ffn"]), h), None
+        if lay is None:
+            return L.swiglu_ffn(L.FFNParams(**p["ffn"]), h), None
+        y = L.swiglu_ffn(L.FFNParams(**p["ffn"]), lay.enter(h))
+        return lay.exit(y), None
     st = cfg.moe_settings()
     mp = M.MoEParams(**{k: p["moe"][k] for k in M.MoEParams._fields})
     e_pad = mp.router.shape[-1]
     if decode:
         return M.moe_ffn_onehot(mp, h, st, e_pad, ranks=ranks,
                                 expert_axis=EXPERT_AXIS), None
+    if lay is not None:
+        ranks = lay.ranks if lay.model > 1 else None
     ep, er, group = M.expert_group(ranks, EXPERT_AXIS)
-    if ep == 1:
-        out = M.moe_ffn_ep_local(mp, h, st, count_dropped=count_dropped)
-    else:
-        s = h.shape[1]
-        if s % ep:
-            raise ValueError(f"a sequence of {s} does not split over {ep} "
-                             "expert ranks")
-        s_loc = s // ep
-        out = M.moe_ffn_ep_local(mp, h[:, er * s_loc:(er + 1) * s_loc], st,
-                                 ranks=ranks, expert_axis=EXPERT_AXIS,
+    drops = []
+
+    def moe(tokens):
+        out = M.moe_ffn_ep_local(mp, tokens, st,
+                                 ranks=ranks if ep > 1 else None,
+                                 expert_axis=EXPERT_AXIS,
                                  count_dropped=count_dropped)
-    y, n = out if count_dropped else (out, None)
-    if ep > 1:
-        y = D.gather_replicated(y, group, dim=1)
-    return y, n
+        if not count_dropped:
+            return out
+        drops.append(out[1])
+        return out[0]
+
+    if ep == 1 or (lay is not None and lay.seq):
+        # one shard, or the tokens are this rank's sequence slice already
+        y = moe(h)
+    elif lay is not None:  # training: gradients in parts, as `lay`'s
+        y = S.gather_dim(moe(S.shard(h, (None, EXPERT_AXIS), ranks)), group,
+                         1, grad=True)
+    else:  # serving: forward only
+        y = D.gather_replicated(moe(D.split_replicated(h, group, 1)), group,
+                                dim=1)
+    return y, (drops[0] if count_dropped else None)
+
+
+def _head_weight(params: dict, cfg: TransformerConfig,
+                 lay: "MeshLayout | None" = None) -> torch.Tensor:
+    """The (D, V_pad) head (this rank's vocab columns with `lay`)."""
+    if cfg.tied_embeddings:
+        emb = params["embed"]
+        return (emb if lay is None else lay.full(emb, lay.specs["embed"])).T
+    if lay is None:
+        return params["head"]
+    return lay.full(params["head"], lay.specs["head"])
+
+
+def _mask_padding(logits: torch.Tensor, cfg: TransformerConfig,
+                  start: int = 0) -> torch.Tensor:
+    """Padding columns (global index >= vocab) at NEG_INF; the columns
+    are the vocab's from `start` on."""
+    if cfg.padded_vocab == cfg.vocab:
+        return logits
+    cols = start + torch.arange(logits.shape[-1], device=logits.device)
+    return logits.masked_fill(cols >= cfg.vocab, L.NEG_INF)
 
 
 def _head(params: dict, x: torch.Tensor, cfg: TransformerConfig):
     """Logits over the padded vocab; padding columns at NEG_INF."""
-    head = params["embed"].T if cfg.tied_embeddings else params["head"]
-    logits = x @ head.to(cfg.dtype)
-    if cfg.padded_vocab != cfg.vocab:  # mask dead padding columns
-        dead = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
-        logits = logits.masked_fill(dead, L.NEG_INF)
-    return logits
+    return _mask_padding(x @ _head_weight(params, cfg).to(cfg.dtype), cfg)
 
 
 def _block(x, p, cfg: TransformerConfig, is_global: bool, window: int,
-           theta: float, ranks=None, count_dropped: bool = False):
+           theta: float, ranks=None, count_dropped: bool = False,
+           lay: "MeshLayout | None" = None):
     """One pre-norm block: attention, then the FFN, each residual. Returns
-    (x, post-RoPE K, V, the FFN's drop count or None; see `_ffn`)."""
+    (x, post-RoPE K, V, the FFN's drop count or None; see `_ffn`). With
+    `lay` the block is this rank's share (its weights gathered here, so
+    a remat gathers them again in the backward)."""
+    heads = None
+    if lay is not None:
+        p = lay.layer_weights(p)
+        heads = (lay.n_q, lay.n_kv, lay.kv_keep)
     h = L.rms_norm(x, p["ln1"])
     attn_out, kc, vc = _attention_prefill_cached(
-        _attn_params(p), h, cfg, is_global=is_global, window=window,
-        theta=theta, qk=(p["attn"].get("qnorm"), p["attn"].get("knorm")),
+        _attn_params(p), h if lay is None else lay.enter(h), cfg,
+        is_global=is_global, window=window, theta=theta,
+        qk=(p["attn"].get("qnorm"), p["attn"].get("knorm")), heads=heads,
     )
-    x = x + attn_out
+    x = x + (attn_out if lay is None else lay.exit(attn_out))
     h2 = L.rms_norm(x, p["ln2"])
     y, n = _ffn(p, h2, cfg, decode=False, ranks=ranks,
-                count_dropped=count_dropped)
+                count_dropped=count_dropped, lay=lay)
     return x + y, kc, vc, n
 
 
 def _forward_trunk(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
-                   *, collect_cache: bool = False, ranks=None, dropped=None):
+                   *, collect_cache: bool = False, ranks=None, dropped=None,
+                   lay: "MeshLayout | None" = None):
     """Embed + layer stack + final norm. Returns (x, aux, caches|None);
     caches are the stacked post-RoPE (K, V), each (L, B, S, K, Dh). A
     forward that records a gradient rematerializes each block in the
@@ -365,9 +596,11 @@ def _forward_trunk(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     over their expert axis (params from `shard_params` or
     `init_params(ranks=)`), and `dropped` (a 0-d int64 tensor) gets the
     MoE capacity drops of this forward added, once a layer, outside the
-    remat (see `moe.moe_ffn_ep_local`)."""
+    remat (see `moe.moe_ffn_ep_local`). `lay`: the training forward
+    across ranks (x this rank's rows, and its sequence slice under
+    seq_shard; the aux loss over the whole batch)."""
     b, s = tokens.shape
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, lay)
     window = cfg.sliding_window if cfg.sliding_window > 0 else s + 1
     remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
     layers = _layers(params["blocks"], cfg.n_layers)
@@ -377,10 +610,11 @@ def _forward_trunk(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
                                    cfg.rope_thetas()):
         if remat:
             x, _, _, n = checkpoint(_block, x, p, cfg, is_global, window,
-                                    theta, ranks, count, use_reentrant=False)
+                                    theta, ranks, count, lay,
+                                    use_reentrant=False)
         else:
             x, kc, vc, n = _block(x, p, cfg, is_global, window, theta,
-                                  ranks, count)
+                                  ranks, count, lay)
             if collect_cache:
                 ks.append(kc)
                 vs.append(vc)
@@ -394,9 +628,29 @@ def _forward_trunk(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
         # hidden state (the reference's cheap proxy).
         st = cfg.moe_settings()
         last = M.MoEParams(**layers[-1]["moe"])
-        aux = M.moe_aux_loss(last, x, st, last.router.shape[-1])
+        if lay is None:
+            aux = M.moe_aux_loss(last, x, st, last.router.shape[-1])
+        else:
+            aux = _moe_aux_loss_mesh(last, x, st, lay)
     caches = (torch.stack(ks), torch.stack(vs)) if collect_cache else None
     return x, aux, caches
+
+
+def _moe_aux_loss_mesh(p: M.MoEParams, x: torch.Tensor, st: M.MoESettings,
+                       lay: MeshLayout) -> torch.Tensor:
+    """`moe.moe_aux_loss` over the whole batch: each rank's sums of the
+    top-k indicators and the router's probabilities over its tokens,
+    summed over the ranks that hold other tokens."""
+    xf = x.reshape(-1, x.shape[-1])
+    e_pad = p.router.shape[-1]
+    probs = M._router_probs(p, xf, st, e_pad)
+    _, eidx = M.top_k(probs, st.top_k)
+    sums = torch.stack([M.one_hot(eidx, e_pad, torch.float32).sum(dim=(0, 1)),
+                        probs.sum(dim=0)])
+    if lay.token_group is not None:
+        sums = D.all_reduce_sum(sums, lay.token_group)
+    t = xf.shape[0] * lay.token_ranks
+    return st.n_experts * torch.sum((sums[0] / t) * (sums[1] / t)) / st.top_k
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
@@ -415,11 +669,17 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
     return x, aux
 
 
-def _attention_prefill_cached(ap, h, cfg, *, is_global, window, theta, qk):
-    """attention_prefill + expose post-RoPE K/V for prefill cache export."""
+def _attention_prefill_cached(ap, h, cfg, *, is_global, window, theta, qk,
+                              heads=None):
+    """attention_prefill + expose post-RoPE K/V for prefill cache export.
+    `heads`: (query heads, KV heads projected, the one KV head kept or
+    None) of this rank's share under tensor parallelism."""
     b, s, _ = h.shape
+    n_q, n_kv, keep = heads or (cfg.n_heads, cfg.n_kv_heads, None)
     positions = torch.arange(s, dtype=torch.int32, device=h.device)[None, :]
-    q, k, v = L._project_qkv(ap, h, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+    q, k, v = L._project_qkv(ap, h, n_q, n_kv, cfg.d_head)
+    if keep is not None:
+        k, v = k[:, :, keep:keep + 1], v[:, :, keep:keep + 1]
     if qk[0] is not None:
         q = L.rms_norm(q, qk[0])
         k = L.rms_norm(k, qk[1])
@@ -450,47 +710,80 @@ def _label_logit(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return ll.to(torch.bfloat16).to(torch.float32)
 
 
-def ce_loss(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 1e-4):
+@dataclasses.dataclass(frozen=True)
+class VocabShard:
+    """Logits cut by vocab over `group`: this rank's columns are the
+    vocab's from `start` on."""
+    group: Any
+    start: int
+
+
+def _lse_and_label(lf: torch.Tensor, labels: torch.Tensor,
+                   shard: "VocabShard | None"):
+    """(logsumexp, the label's logit) of float32 logits. Over a vocab
+    shard: the max and the sum of exponentials across the shards (the
+    max with no gradient: it only shifts), the label's logit from the
+    rank that owns it, in the same bf16 chain, summed over the shards."""
+    if shard is None:
+        return torch.logsumexp(lf, dim=-1), _label_logit(lf, labels)
+    mx = D.all_reduce_max(lf.amax(dim=-1), shard.group)
+    total = D.all_reduce_sum(torch.exp(lf - mx[..., None]).sum(dim=-1),
+                             shard.group)
+    lse = mx + torch.log(total)
+    local = labels.long() - shard.start
+    own = (local >= 0) & (local < lf.shape[-1])
+    ll = torch.gather(lf, -1, local.clamp(0, lf.shape[-1] - 1)[..., None])
+    ll = torch.where(own, ll[..., 0].to(torch.bfloat16).to(torch.float32),
+                     0.0)
+    return lse, D.all_reduce_sum(ll, shard.group)
+
+
+def ce_loss(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 1e-4,
+            shard: "VocabShard | None" = None):
     """(nll + z_loss * mean(lse^2), nll): cross-entropy with a z-loss, the
-    logits in float32."""
+    logits in float32. `shard`: the logits are this rank's vocab columns
+    (every rank of its group with the same rows)."""
     lf = logits.to(torch.float32)
-    lse = torch.logsumexp(lf, dim=-1)
-    nll = torch.mean(lse - _label_logit(lf, labels))
+    lse, ll = _lse_and_label(lf, labels, shard)
+    nll = torch.mean(lse - ll)
     return nll + z_loss * torch.mean(lse**2), nll
 
 
 def chunked_ce_loss(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-                    cfg: TransformerConfig, z_loss: float = 1e-4):
+                    cfg: TransformerConfig, z_loss: float = 1e-4,
+                    shard: "VocabShard | None" = None):
     """Head projection + CE over sequence chunks of `cfg.ce_chunk` (one
-    chunk when S is not a multiple of it), summed in chunk order."""
+    chunk when S is not a multiple of it), summed in chunk order.
+    `shard`: `head` is this rank's vocab columns."""
     b, s, d = x.shape
     c = cfg.ce_chunk if (cfg.ce_chunk and s % cfg.ce_chunk == 0) else s
     nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, s, c):
         logits = x[:, c0:c0 + c] @ head.to(x.dtype)  # (B, c, V)
-        if cfg.padded_vocab != cfg.vocab:
-            dead = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
-            logits = logits.masked_fill(dead, L.NEG_INF)
+        logits = _mask_padding(logits, cfg, shard.start if shard else 0)
         lf = logits.to(torch.float32)
-        lse = torch.logsumexp(lf, dim=-1)
-        ll = _label_logit(lf, labels[:, c0:c0 + c])
+        lse, ll = _lse_and_label(lf, labels[:, c0:c0 + c], shard)
         nll_sum = nll_sum + torch.sum(lse - ll)
         z_sum = z_sum + torch.sum(lse**2)
     n = b * s
     return nll_sum / n + z_loss * z_sum / n, nll_sum / n
 
 
-def make_loss_fn(cfg: TransformerConfig, aux_weight: float = 0.01):
-    """loss_fn(params, tokens, labels) -> (total, {"loss": nll, "aux"})."""
+def make_loss_fn(cfg: TransformerConfig, aux_weight: float = 0.01,
+                 lay: "MeshLayout | None" = None):
+    """loss_fn(params, tokens, labels) -> (total, {"loss": nll, "aux"}).
+    With `lay` the params are this rank's blocks and tokens / labels its
+    rows; the loss is its data group's (the same on every rank of it)."""
     use_chunked = cfg.ce_chunk > 0
 
     def loss_fn(params, tokens, labels):
+        if lay is not None:
+            return _mesh_loss(params, tokens, labels, cfg, aux_weight, lay)
         if use_chunked:
             x, aux = forward_hidden(params, tokens, cfg)
-            head = (params["embed"].T if cfg.tied_embeddings
-                    else params["head"])
-            total, nll = chunked_ce_loss(x, head, labels, cfg)
+            total, nll = chunked_ce_loss(x, _head_weight(params, cfg),
+                                         labels, cfg)
         else:
             logits, aux, _ = forward(params, tokens, cfg)
             total, nll = ce_loss(logits, labels)
@@ -500,36 +793,95 @@ def make_loss_fn(cfg: TransformerConfig, aux_weight: float = 0.01):
     return loss_fn
 
 
+def _mesh_loss(params, tokens, labels, cfg, aux_weight, lay: MeshLayout):
+    x, aux, _ = _forward_trunk(params, tokens, cfg, lay=lay)
+    x = lay.enter(x)  # the logits hold the whole sequence, cut by vocab
+    head = _head_weight(params, cfg, lay)
+    shard = (VocabShard(lay.mgroup, lay.vocab_start) if lay.model > 1
+             else None)
+    if cfg.ce_chunk > 0:
+        total, nll = chunked_ce_loss(x, head, labels, cfg, shard=shard)
+    else:
+        logits = _mask_padding(x @ head.to(cfg.dtype), cfg,
+                               shard.start if shard else 0)
+        total, nll = ce_loss(logits, labels, shard=shard)
+    total = total + aux_weight * aux
+    return total, {"loss": nll, "aux": aux}
+
+
 def make_train_step(cfg: TransformerConfig, opt_cfg: AdamWConfig,
-                    n_micro: int = 1):
+                    n_micro: int = 1, ranks: "RankContext | None" = None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics); batch: {"tokens", "labels"} (B, S) int32 on the params'
     device. With `n_micro` > 1 the batch is split into that many
     micro-batches whose gradients are summed in float32 and averaged;
     the loss metrics are the last micro-batch's. Metrics are 0-d tensors
-    on the device (no host sync)."""
+    on the device (no host sync).
+
+    `ranks` (a ("data", "model") mesh of more than one rank): the params
+    are this rank's blocks by `param_specs(cfg, False, model size)`
+    (`shard_params`), the opt state `adamw_init(params, specs, ranks)`'s (m and v cut by ZeRO-1 over "data"), and the batch
+    this rank's rows of the global batch (its data coordinate's block;
+    `data.tokens.data_rows`). Each rank seeds its backward with 1 /
+    world of its data group's loss, so the seeds sum to the global loss;
+    each leaf's gradient is summed over its replica axes (over a data
+    axis, the mean of the data groups' gradients) before AdamW, whose
+    bf16 compression comes after that mean. The loss metric is the mean
+    over the data groups; aux and grad_norm are global. At one rank the
+    step is the one-process step."""
+    if ranks is not None and ranks.world_size > 1:
+        specs = param_specs(cfg, False, ranks.axis_size(EXPERT_AXIS))
+        return _mesh_train_step(cfg, opt_cfg, n_micro, ranks, specs)
     loss_fn = make_loss_fn(cfg)
 
     def grad_fn(params, tokens, labels):
         return TT.grad(loss_fn, params, tokens, labels)
 
     def train_step(params, opt_state, batch):
-        tokens, labels = batch["tokens"], batch["labels"]
-        if n_micro == 1:
-            grads, metrics = grad_fn(params, tokens, labels)
-        else:
-            mb = tokens.shape[0] // n_micro
-            tk = tokens.reshape(n_micro, mb, -1)
-            lb = labels.reshape(n_micro, mb, -1)
-            grads = TT.map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            for t, lab in zip(tk, lb):
-                g, metrics = grad_fn(params, t, lab)
-                grads = TT.map(lambda a, x: a + x.to(torch.float32), grads, g)
-                del g
-            grads = TT.map(lambda g: g / n_micro, grads)
+        grads, metrics = _accumulate(grad_fn, params, batch, n_micro)
         new_params, new_state, om = adamw_update(opt_cfg, grads, opt_state,
                                                  params)
+        return new_params, new_state, dict(metrics, **om)
+
+    return train_step
+
+
+def _accumulate(grad_fn, params, batch, n_micro: int):
+    """(grads, metrics) of one batch, or of `n_micro` micro-batches: their
+    gradients summed in float32 and averaged, the last one's metrics."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    if n_micro == 1:
+        return grad_fn(params, tokens, labels)
+    mb = tokens.shape[0] // n_micro
+    tk = tokens.reshape(n_micro, mb, -1)
+    lb = labels.reshape(n_micro, mb, -1)
+    grads = TT.map(lambda p: torch.zeros(
+        p.shape, dtype=torch.float32, device=p.device), params)
+    for t, lab in zip(tk, lb):
+        g, metrics = grad_fn(params, t, lab)
+        grads = TT.map(lambda a, x: a + x.to(torch.float32), grads, g)
+        del g
+    return TT.map(lambda g: g / n_micro, grads), metrics
+
+
+def _mesh_train_step(cfg, opt_cfg, n_micro, ranks, specs):
+    lay = MeshLayout(cfg, ranks, specs)
+    loss_fn = make_loss_fn(cfg, lay=lay)
+    seed = 1.0 / ranks.world_size
+
+    def seeded(params, tokens, labels):
+        total, metrics = loss_fn(params, tokens, labels)
+        return total * seed, metrics
+
+    def grad_fn(params, tokens, labels):
+        return TT.grad(seeded, params, tokens, labels)
+
+    def train_step(params, opt_state, batch):
+        grads, metrics = _accumulate(grad_fn, params, batch, n_micro)
+        grads = S.reduce_grads(grads, specs, ranks)
+        metrics = dict(metrics, loss=lay.data_mean(metrics["loss"]))
+        new_params, new_state, om = adamw_update(
+            opt_cfg, grads, opt_state, params, specs=specs, ranks=ranks)
         return new_params, new_state, dict(metrics, **om)
 
     return train_step

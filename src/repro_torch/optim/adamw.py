@@ -8,6 +8,14 @@ Every scalar is a float32 tensor on the params' device, computed as the
 reference computes it (`step` cast to float32, `b1 ** t` in float32):
 Python floats would compute `0.9 ** t` in float64 and drift from it. No
 scalar is read back to the host, so a step makes no host sync.
+
+Across ranks (`specs` and `ranks`: the params are this rank's blocks, cut
+by their specs, and the gradients already summed over each leaf's
+replicas) the global norm counts each distinct element once, and m and
+v follow ZeRO-1 (`specs.zero1_spec`, the reference's `_opt_specs`): a
+leaf that a free dim lets cut over "data" keeps only this rank's slice
+of m and v there, updates that slice of the param, and all-gathers the
+param over "data".
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ from typing import Any
 import torch
 
 from repro_torch import tree as TT
+from repro_torch.core import specs as S
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,33 +57,68 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def adamw_init(params: Any) -> dict:
+def _data_size(ranks) -> int:
+    return ranks.axis_size("data") if "data" in ranks.mesh.axis_names else 1
+
+
+def mv_shape(p: torch.Tensor, spec: tuple, ranks) -> tuple:
+    """The shape of this rank's m and v for param block `p` under ZeRO-1."""
+    whole = S.whole_shape(p.shape, spec, ranks)
+    return S.local_shape(whole, S.zero1_spec(spec, whole, _data_size(ranks)),
+                         ranks)
+
+
+def state_specs(params: Any, specs: Any, ranks) -> dict:
+    """The spec tree of `adamw_init(params, specs, ranks)`'s state (the
+    reference's `_opt_specs` of the whole params): m and v by ZeRO-1."""
+    whole = S.map_leaves(lambda p, spec: torch.empty(
+        S.whole_shape(p.shape, spec, ranks), device="meta"), params, specs)
+    return S.opt_specs(specs, whole, _data_size(ranks))
+
+
+def adamw_init(params: Any, specs: Any = None, ranks=None) -> dict:
     """Zero m and v (float32, each param's shape and device) and step 0
-    (int32, on the first param's device)."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    (int32, on the first param's device). With `specs` and `ranks`, m and
+    v are this rank's ZeRO-1 slices of its blocks' (`mv_shape`)."""
+    def zeros(p, spec=None):
+        shape = p.shape if ranks is None else mv_shape(p, spec, ranks)
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+    def tree():
+        if ranks is None:
+            return TT.map(zeros, params)
+        return S.map_leaves(zeros, params, specs)
+
     device = TT.leaves(params)[0].device
     return {
-        "m": TT.map(zeros, params),
-        "v": TT.map(zeros, params),
+        "m": tree(),
+        "v": tree(),
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, specs: Any = None, ranks=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares, the leaves
-    summed in the reference's leaf order."""
+    summed in the reference's leaf order. Across ranks (`specs`, `ranks`;
+    the leaves this rank's blocks) each distinct element counts once."""
+    if ranks is not None:
+        return torch.sqrt(S.sq_norm(tree, specs, ranks))
     sq = [torch.sum(g.to(torch.float32) ** 2) for g in TT.leaves(tree)]
     return torch.sqrt(sum(sq))
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads: Any, state: dict, params: Any):
+def adamw_update(cfg: AdamWConfig, grads: Any, state: dict, params: Any, *,
+                 specs: Any = None, ranks=None):
     """Returns (new_params, new_state, metrics). Param dtype is preserved
-    (bf16 params get f32 update math, then cast back)."""
+    (bf16 params get f32 update math, then cast back). With `specs` and
+    `ranks` the params and gradients are this rank's blocks (the
+    gradients summed over their replicas); a leaf whose m is a ZeRO-1
+    slice of its block is updated on that slice and all-gathered over
+    "data"."""
     if cfg.grad_compression_bf16:
         grads = TT.map(lambda g: g.to(torch.bfloat16), grads)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, ranks)
     # a tensor divided, not `float / tensor` (torch's reciprocal-times form)
     scale = torch.clamp(
         torch.full_like(gnorm, cfg.clip_norm) / torch.clamp(gnorm, min=1e-12),
@@ -96,7 +140,19 @@ def adamw_update(cfg: AdamWConfig, grads: Any, state: dict, params: Any):
         )
         return (p.to(torch.float32) - lr * delta).to(p.dtype), m, v
 
-    out = [upd(p, g, m, v) for p, g, m, v in zip(
+    def upd_slice(p, g, m, v):
+        """upd on this rank's ZeRO-1 slice (the one dim where m is
+        smaller than p), the new param all-gathered over "data"."""
+        if ranks is None or m.shape == p.shape:
+            return upd(p, g, m, v)
+        k = next(i for i, (a, b) in enumerate(zip(m.shape, p.shape))
+                 if a != b)
+        lo = ranks.axis_index("data") * m.shape[k]
+        new, m, v = upd(p.narrow(k, lo, m.shape[k]),
+                        g.narrow(k, lo, m.shape[k]), m, v)
+        return S.gather_dim(new, ranks.group("data"), k), m, v
+
+    out = [upd_slice(p, g, m, v) for p, g, m, v in zip(
         TT.leaves(params), TT.leaves(grads), TT.leaves(state["m"]),
         TT.leaves(state["v"]))]
     new_p = TT.unflatten(params, [o[0] for o in out])

@@ -12,6 +12,13 @@ fault-tolerance contract a 1000-node job needs:
 
 A step's metrics (0-d tensors on the device) come to the host in one
 copy: one sync per step, not one per metric.
+
+Across ranks (`ranks`, and `specs` for this rank's param blocks) every
+rank steps, on its data coordinate's rows of each global batch
+(`data.tokens.data_rows`); the checkpoints are gathered whole and rank 0
+writes them, every rank waiting for the write; a resume restores the
+step rank 0 finds, params, opt state and the pipeline's cursor, on every
+rank; only rank 0 prints.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.optim.adamw import adamw_init
+from repro_torch.data.tokens import data_rows
+from repro_torch.optim.adamw import adamw_init, state_specs
 
 
 class SimulatedFailure(RuntimeError):
@@ -65,11 +73,17 @@ class Trainer:
         settings: TrainSettings = TrainSettings(),
         opt_state: Any = None,
         to_device: Callable | None = None,
+        ranks: Any = None,
+        specs: Any = None,
     ):
         self.train_step = train_step
         self.params = params
+        self.ranks = ranks
         self.opt_state = opt_state if opt_state is not None else adamw_init(
-            params)
+            params, specs, ranks)
+        # the spec tree of a checkpoint's {"params", "opt"} across ranks
+        self.ckpt_specs = None if ranks is None else {
+            "params": specs, "opt": state_specs(params, specs, ranks)}
         self.pipeline = pipeline
         self.s = settings
         self.mgr = CheckpointManager(ckpt_dir, keep_k=settings.keep_k,
@@ -83,17 +97,32 @@ class Trainer:
     def _save(self) -> None:
         tree = {"params": self.params, "opt": self.opt_state}
         self.mgr.save(self.step, tree,
-                      extra_meta={"pipeline": self.pipeline.state_dict()})
+                      extra_meta={"pipeline": self.pipeline.state_dict()},
+                      ranks=self.ranks, specs=self.ckpt_specs)
 
     def _restore(self, step: int) -> None:
         like = {"params": self.params, "opt": self.opt_state}
-        tree = self.mgr.restore(step, like)
+        tree = self.mgr.restore(step, like, ranks=self.ranks,
+                                specs=self.ckpt_specs)
         self.params, self.opt_state = tree["params"], tree["opt"]
         self.pipeline.load_state_dict(self.mgr.meta(step)["pipeline"])
         self.step = step
 
+    @property
+    def lead(self) -> bool:
+        return self.ranks is None or self.ranks.rank == 0
+
+    def _rows(self, batch):
+        """This rank's rows of a global batch (all of it in one process)."""
+        if self.ranks is None or "data" not in self.ranks.mesh.axis_names:
+            return batch
+        return data_rows(batch, self.ranks.axis_index("data"),
+                         self.ranks.axis_size("data"))
+
     def resume_if_possible(self) -> bool:
         latest = self.mgr.latest_step()
+        if self.ranks is not None:  # rank 0's view, on every rank
+            latest = self.ranks.broadcast(latest)
         if latest is None:
             return False
         self._restore(latest)
@@ -102,7 +131,7 @@ class Trainer:
     # -- main loop -----------------------------------------------------------
     def run(self) -> list[dict]:
         while self.step < self.s.total_steps:
-            batch = self.to_device(next(self.pipeline))
+            batch = self.to_device(self._rows(next(self.pipeline)))
             t0 = time.time()
             new_p, new_s, metrics = self.train_step(
                 self.params, self.opt_state, batch
@@ -119,7 +148,8 @@ class Trainer:
             metrics["step"] = self.step
             metrics["dt"] = time.time() - t0
             self.history.append(metrics)
-            if self.s.log_every and self.step % self.s.log_every == 0:
+            if (self.lead and self.s.log_every
+                    and self.step % self.s.log_every == 0):
                 print(
                     f"step {self.step}: "
                     + " ".join(f"{k}={v:.4g}" for k, v in metrics.items()
@@ -140,7 +170,10 @@ class Trainer:
 def run_with_restarts(make_trainer: Callable[[], Trainer],
                       max_restarts: int = 3) -> Trainer:
     """Supervisor loop: restart-from-checkpoint on failure (the single-
-    process analogue of a cluster controller rescheduling a died job)."""
+    process analogue of a cluster controller rescheduling a died job).
+    Across ranks every rank runs it: the injected failure strikes every
+    rank at the same step, each waits for the write in flight, and all
+    restart together from the checkpoint rank 0 finds."""
     restarts = 0
     while True:
         tr = make_trainer()
@@ -149,6 +182,8 @@ def run_with_restarts(make_trainer: Callable[[], Trainer],
             tr.run()
             return tr
         except SimulatedFailure:
+            tr.mgr.wait()
             restarts += 1
             if restarts > max_restarts:
                 raise
+

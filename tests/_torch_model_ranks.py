@@ -63,6 +63,39 @@ def cross_jacobians(fn, x: torch.Tensor, n_in: list[int], n_out: list[int],
     return _np(torch.stack(num)), _np(torch.stack(ana))
 
 
+def replicated_out_jacobians(fn, x: torch.Tensor, world: int, rank: int):
+    """The cross-rank Jacobian of `fn`, whose output is the same on every
+    rank (a replicated tensor, one variable), in float64, both ways:
+
+      num (world * x.numel(), out.numel()): d(the output) / d(rank r's
+          input element i), central differences with only rank r's
+          element moved (every rank computes all of it);
+      ana (out.numel(), x.numel()): this rank's input gradient when
+          every rank seeds output element j with 1 (the loss downstream
+          the same on every rank).
+
+    Stacked over the ranks along the input axis, ana is num's transpose."""
+    num = []
+    for r in range(world):
+        for i in range(x.numel()):
+            cols = []
+            for sign in (1.0, -1.0):
+                xp = x.detach().clone()
+                if r == rank:
+                    xp.view(-1)[i] += sign * EPS
+                cols.append(fn(xp).reshape(-1))
+            num.append((cols[0] - cols[1]) / (2 * EPS))
+    ana = []
+    for j in range(num[0].numel()):
+        xg = x.detach().clone().requires_grad_(True)
+        y = fn(xg)
+        seed = torch.zeros(y.shape, dtype=y.dtype)
+        seed.view(-1)[j] = 1.0
+        y.backward(seed)
+        ana.append(xg.grad.reshape(-1))
+    return _np(torch.stack(num)), _np(torch.stack(ana))
+
+
 def exchange_inputs(world: int, seed: int) -> dict:
     """The whole inputs of exchange_prog, the same in every process."""
     rng = np.random.RandomState(seed)
@@ -80,8 +113,9 @@ def exchange_inputs(world: int, seed: int) -> dict:
 def exchange_prog(ranks, seed: int) -> dict:
     """core.distributed's differentiable collectives over the world group
     (every mesh axis): forwards, the all-gather's backward against the
-    reduce-scatter of its gradient, the replicated gather's refusal, and
-    the cross-rank Jacobians in float64."""
+    reduce-scatter of its gradient, and the cross-rank Jacobians in
+    float64 (the replicated gather's with its output's gradient the same
+    on every rank)."""
     world, r = ranks.world_size, ranks.rank
     group = ranks.group(tuple(ranks.mesh.axis_names))
     inp = exchange_inputs(world, seed)
@@ -99,12 +133,8 @@ def exchange_prog(ranks, seed: int) -> dict:
     (y * torch.from_numpy(inp["weights"][r])).sum().backward()
     out["gather_grad"] = _np(x.grad)
     out["replicated"] = _np(D.gather_replicated(t["rows"], group, dim=1))
-    x = t["rows"].clone().requires_grad_(True)
-    try:
-        D.gather_replicated(x, group, dim=1).sum().backward()
-        out["replicated_grad"] = "no error"
-    except RuntimeError as e:
-        out["replicated_grad"] = str(e)
+    out["replicated_jacobian"] = replicated_out_jacobians(
+        lambda v: D.gather_replicated(v, group, dim=1), t["rows"], world, r)
     n_even = [world * 3 * 2] * world
     n_un = [int(splits[s].sum()) * 2 for s in range(world)]
     n_un_out = [int(splits[:, s].sum()) * 2 for s in range(world)]

@@ -9,8 +9,10 @@ collective (every rank's outputs against every rank's inputs) in float64
 by central differences equals the one its backward gives, within 1e-6
 (EPS 1e-6 on values of order 1: the differences of linear maps are exact
 to a few ulps of 1e-16 / 1e-6); the all-gather's backward is the
-reduce-scatter (sum) of its gradient; the replicated gather refuses a
-gradient.
+reduce-scatter (sum) of its gradient; the replicated gather's backward
+(the slice of the gradient this rank's input made) is its cross-rank
+Jacobian when every rank seeds the same output (the loss downstream the
+same on every rank), within 1e-6.
 
 Lookup: every rank's rows equal `table[ids]` bit for bit, also on a
 skewed stream that overflows the reference's capacity; the table's
@@ -106,12 +108,18 @@ def test_all_gather_backward_is_the_reduce_scatter(runs, world):
 
 
 @pytest.mark.parametrize("world", sorted(MESHES))
-def test_replicated_gather_refuses_a_gradient(runs, world):
+def test_replicated_gather_gradient_is_its_cross_rank_jacobian(runs, world):
     inp = MR.exchange_inputs(world, SEED)
     want = np.concatenate(list(inp["rows"]), axis=1)
-    for got in _exchanges(runs, world):
+    per_rank = [got["replicated_jacobian"]
+                for got in _exchanges(runs, world)]
+    num = per_rank[0][0]
+    for got, (n, _) in zip(_exchanges(runs, world), per_rank):
         np.testing.assert_array_equal(got["replicated"], want)
-        assert "carries no gradient" in got["replicated_grad"]
+        np.testing.assert_array_equal(n, num)  # every rank saw one output
+    ana = np.concatenate([a for _, a in per_rank], axis=1)
+    assert num.shape == ana.T.shape and num.any()
+    np.testing.assert_allclose(ana, num.T, **JAC_TOL)
 
 
 def _lookups(runs, world):

@@ -32,6 +32,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -239,6 +240,8 @@ def test_init_params_keeps_this_ranks_experts():
     import importlib
 
     class Ranks:  # a rank context's expert-axis surface
+        mesh = types.SimpleNamespace(axis_names=("model",))
+
         def __init__(self, index):
             self.index = index
 
@@ -253,7 +256,7 @@ def test_init_params_keeps_this_ranks_experts():
     for i in range(2):
         mine = T.init_params(torch.Generator().manual_seed(0), cfg,
                              ranks=Ranks(i))
-        cut = T.shard_params(whole, Ranks(i))
+        cut = T.shard_params(whole, Ranks(i), T.serve_specs(cfg))
         for (name, a), (_, b) in zip(T._leaves(mine), T._leaves(cut)):
             assert torch.equal(a, b), name
         assert mine["blocks"]["moe"]["we_gate"].shape[1] == 4
