@@ -214,14 +214,33 @@ Phases (any failure ends the run with a non-zero exit and no "ok" line):
      config (8,385,000 table rows a rank) and train_batch, 1 step, m and
      v as `_opt_specs` cuts them: the updated rows within 1e-6 of one
      card's.
- 15. summary — the stacked-forms line, the kernels line, the card line,
-     then the result line.
+ 15. the cells and the dry-run — `configs/registry.build_cell`: (a) the
+     `mapsq` cells for real, every shard of the production mesh a local
+     shard of one ShardMesh on the card (join_1m and join_16m on 16 x 16,
+     join_1m on 2 x 16 x 16), the cell's own step and capacities on its
+     seeded relations at full row counts: on 16 x 16 no overflow, the
+     per-shard totals a NumPy count's, the rows a plain-torch oracle's as
+     a multiset; on 2 x 16 x 16, where the reference's capacities
+     overflow the pod stage, the flag and the rows lost logged and the
+     rows produced a sub-multiset of the oracle's; one pair_expand launch
+     a join; warm p50 (CUDA events, 5 runs), peak, device launches; (b) `python -m repro_torch.launch.dryrun`
+     of gemma3-1b train_4k, graphcast ogb_products, deepfm serve_bulk and
+     mapsq join_16m on both meshes (a CPU process beside (a) and (c)),
+     each record's terms and bottleneck; (c) gat-cora full_graph_sm,
+     deepfm serve_p99, gemma3-1b train_4k (batch 1 x 4096) and mapsq
+     join_1m on a one-rank mesh, one step on the card under the counters:
+     its FLOPs, argument bytes and kernel calls the meta trace's exactly,
+     its max_memory_allocated logged beside the trace's temp + argument
+     bytes.
+ 16. summary — the stacked-forms line, the kernels line (each kernel with
+     the cells that reach it), the card line, then the result line.
 
-Each of the paths of phases 3, 5, 6, 7, 8, 9, 11, 12, 13 and 14 runs with
-the launch counts set to 0 just before it and read just after (in phases
-9, 13 and 14 on each rank); the kernels line reports each kernel's
+Each of the paths of phases 3, 5, 6, 7, 8, 9, 11, 12, 13, 14 and 15 runs
+with the launch counts set to 0 just before it and read just after (in
+phases 9, 13 and 14 on each rank); the kernels line reports each kernel's
 launches from the path that runs it (segment_reduce's: the kernel API's,
-phase 11's, 12's, 13's and 14's, also apart).
+phase 11's, 12's, 13's and 14's, also apart; pair_expand's: phase 5's and
+15's mapsq joins, also apart).
 
 Needs the repository's src/ beside it and one CUDA card; exits non-zero
 without them.
@@ -260,6 +279,12 @@ runs the build and phase 14's (b) with one NCCL rank on each of 4 cards,
 at full depth and train_4k's sequence (global batch 4 x 4096); the
 one-card reference takes it in two micro-batches. No result line.
 
+    python3 chip_smoke.py --cells-only [--dryrun-all]
+
+runs the build and phase 15 alone (no result line); with --dryrun-all
+its dry-run covers every cell on both meshes (84 records under
+build/dryrun/).
+
     python3 chip_smoke.py --kernels-only [--src OTHER/src]
 
 runs phases 1-2 alone, on this checkout's kernels or another tree's (an
@@ -274,6 +299,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -3837,71 +3863,12 @@ def nvlink_ms(remote_bytes: int) -> float:
     return round(remote_bytes / NVLINK_BYTES_PER_S * 1e3, 4)
 
 
-class CollectiveBytes:
-    """While entered: the bytes this rank hands torch.distributed's
-    collectives (each call's input), the part of them that must reach
-    another rank (`remote`: an exchange's rows for the others, an
-    all-gather's input once for each other rank, an all-reduce's 2 (n -
-    1) / n of its input as a ring moves it), the calls and, with `timed`,
-    the seconds spent in them between a synchronize before and after each
-    (every wait on the peers and on the card counted; a run of its own,
-    as the syncs stop the host running ahead); the counts add up over
-    every entry. Patches the three collectives the port calls."""
+def CollectiveBytes(timed: bool = False):
+    """The package's collective counter (`repro_torch.obs.collectives`),
+    imported once src/ is on the path."""
+    from repro_torch.obs.collectives import CollectiveBytes as counter
 
-    NAMES = ("all_to_all_single", "all_gather_into_tensor", "all_reduce")
-
-    def __init__(self, timed: bool = False):
-        self.bytes = 0
-        self.remote = 0
-        self.calls = 0
-        self.seconds = 0.0
-        self.timed = timed
-
-    def __enter__(self):
-        import torch.distributed as dist
-
-        self._dist = dist
-        self._orig = {n: getattr(dist, n) for n in self.NAMES}
-        for n, f in self._orig.items():
-            setattr(dist, n, self._counted(f, n))
-        return self
-
-    def _remote(self, name: str, args, kw) -> int:
-        dist = self._dist
-        group = kw.get("group")
-        size = dist.get_world_size(group)
-        src = args[0] if name == "all_reduce" else args[1]
-        n = src.numel() * src.element_size()
-        if name == "all_reduce":
-            return 2 * n * (size - 1) // size
-        if name == "all_gather_into_tensor":
-            return n * (size - 1)
-        splits = args[3] if len(args) > 3 else kw.get("input_split_sizes")
-        me = dist.get_rank(group)
-        row = n // max(1, src.shape[0])
-        return n - (splits[me] * row if splits else n // size)
-
-    def _counted(self, f, name: str):
-        def call(*args, **kw):
-            src = args[0] if name == "all_reduce" else args[1]
-            self.bytes += src.numel() * src.element_size()
-            self.remote += self._remote(name, args, kw)
-            self.calls += 1
-            if not self.timed:
-                return f(*args, **kw)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            try:
-                return f(*args, **kw)
-            finally:
-                torch.cuda.synchronize()
-                self.seconds += time.perf_counter() - t
-
-        return call
-
-    def __exit__(self, *exc):
-        for n, f in self._orig.items():
-            setattr(self._dist, n, f)
+    return counter(timed=timed)
 
 
 def collective_share(fn, calls: int = 1) -> dict:
@@ -5209,6 +5176,270 @@ def train_ranks_phase(dev, nccl: bool = False) -> dict:
 # -- main ----------------------------------------------------------------------
 
 
+
+# -- phase 15: the cells (build_cell) and the dry-run ---------------------------
+
+CELL_SEED = 23
+CELL_REPEATS = 5
+DRYRUN_FAMILY_CELLS = [("gemma3-1b", "train_4k"), ("graphcast", "ogb_products"),
+                       ("deepfm", "serve_bulk"), ("mapsq", "join_16m")]
+COUNT_CELLS = [("gat-cora", "full_graph_sm", None),
+               ("deepfm", "serve_p99", None),
+               ("gemma3-1b", "train_4k", 1),  # batch cut to 1 x 4096
+               ("mapsq", "join_1m", None)]
+
+
+def start_dryrun(cells, out: pathlib.Path, all_cells: bool = False):
+    """`python -m repro_torch.launch.dryrun` over `cells` on both meshes
+    (every cell with `all_cells`), in a process of its own (one fake
+    process group a process); returns (process, out dir, start time)."""
+    out.mkdir(parents=True, exist_ok=True)
+    for f in out.glob("*.json*"):
+        f.unlink()
+    if all_cells:
+        code = ("import sys\nfrom repro_torch.launch import dryrun\n"
+                f"sys.exit(dryrun.main(['--all', '--out', {str(out)!r}]))\n")
+    else:
+        code = ("import sys\nfrom repro_torch.launch import dryrun\n"
+                f"for a, s in {cells!r}:\n"
+                "    if dryrun.main(['--arch', a, '--shape', s, '--mesh', "
+                f"'both', '--out', {str(out)!r}]):\n"
+                "        sys.exit(1)\n")
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, out, time.perf_counter()
+
+
+def finish_dryrun(started, timeout: float) -> tuple[dict, float]:
+    """The records of a `start_dryrun` process, keyed "arch/shape/mesh",
+    and its wall seconds; fails on its failure or a cell's .err."""
+    proc, out, t0 = started
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"the dry-run took over {timeout} s")
+    wall = time.perf_counter() - t0
+    errs = sorted(p.name for p in out.glob("*.err"))
+    check(proc.returncode == 0 and not errs,
+          f"dry-run failed (rc {proc.returncode}, {errs}):\n{text[-4000:]}")
+    recs = {}
+    for p in sorted(out.glob("*.json")):
+        a, sh, mesh = p.stem.split("__")
+        recs[f"{a}/{sh}/{mesh}"] = json.loads(p.read_text())
+    return recs, wall
+
+
+def record_terms(rec: dict) -> dict:
+    """A dry-run record's roofline terms, memory and bottleneck."""
+    mem = rec["memory"]
+    return {"t_compute_s": rec["t_compute"], "t_memory_s": rec["t_memory"],
+            "t_collective_s": rec["t_collective"],
+            "bottleneck": rec["bottleneck"],
+            "flops_per_device": rec["flops_per_device"],
+            "collective_bytes": rec["collective_bytes_per_device"]["total"],
+            "hbm_gib": round((mem["temp_bytes"] + mem["argument_bytes"])
+                             / 2**30, 3),
+            "fits_hbm": rec["fits_hbm"], "t_trace_s": rec["t_trace_s"],
+            "kernel_calls": rec["kernel_calls"]}
+
+
+def join_oracle(left, right) -> tuple[int, torch.Tensor]:
+    """The join's size from a NumPy count (per key, left rows times right
+    rows) and its (x, y, z) rows from plain torch on the card (sort by
+    the key, expand every pair), independent of the port's join."""
+    import numpy as np
+
+    ly, ry = left[:, 1], right[:, 0]
+    n = int(max(int(ly.max()), int(ry.max())) + 1)
+    cl = np.bincount(ly.cpu().numpy(), minlength=n).astype(np.int64)
+    cr = np.bincount(ry.cpu().numpy(), minlength=n).astype(np.int64)
+    count = int((cl * cr).sum())
+    lo = torch.argsort(ly, stable=True)
+    ro = torch.argsort(ry, stable=True)
+    ls, rs = left[lo], right[ro]
+    ccr = torch.bincount(ry, minlength=n)
+    start = torch.cumsum(ccr, 0) - ccr
+    reps = ccr[ls[:, 1].long()]
+    li = torch.repeat_interleave(torch.arange(ls.shape[0], device=left.device),
+                                 reps)
+    first = torch.cumsum(reps, 0) - reps
+    k = torch.arange(li.shape[0], device=left.device) - first[li]
+    ri = start[ls[li, 1].long()] + k
+    rows = torch.stack([ls[li, 0], ls[li, 1], rs[ri, 1]], 1)
+    return count, rows
+
+
+def sorted_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Rows (n, 3) in lexicographic order (three stable sorts)."""
+    for c in (2, 1, 0):
+        rows = rows[torch.argsort(rows[:, c], stable=True)]
+    return rows
+
+
+def within_multiset(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Whether every row of `got` is a row of `want`, as often or less."""
+    _, inv = torch.unique(torch.cat([want, got]), dim=0, return_inverse=True)
+    n = int(inv.max()) + 1 if inv.numel() else 0
+    cw = torch.bincount(inv[:want.shape[0]], minlength=n)
+    cg = torch.bincount(inv[want.shape[0]:], minlength=n)
+    return bool((cg <= cw).all())
+
+
+def mapsq_cell_run(dev, shape: str, multi: bool) -> dict:
+    """(a) One mapsq cell for real: every shard of the production mesh a
+    local shard of one ShardMesh on the card, the cell's seeded relations
+    at full row counts, the cell's own step at its capacities; held to
+    the oracle. On 2 x 16 x 16 the reference's capacities overflow the
+    pod stage (one bucket sized by the largest axis, ROADMAP Queue 3):
+    there the flag and the rows lost are logged, and the rows the join
+    produced are held to be the oracle's (a sub-multiset)."""
+    from repro_torch import kernels
+    from repro_torch.configs import registry as R
+    from repro_torch.core.distributed import make_mesh
+
+    sizes = (2, 16, 16) if multi else (16, 16)
+    names = ("pod", "data", "model") if multi else ("data", "model")
+    cell = R.build_cell("mapsq", shape, make_mesh(sizes, names), multi)
+    left, right = cell.materialize(CELL_SEED, dev)
+    in_bytes = tree_bytes([left.cols, left.valid, right.cols, right.valid])
+    rec = {"rows": int(left.cols.shape[0]), "shards": math.prod(sizes),
+           "note": cell.note}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clear_launches(kernels)
+    out, total, ov = cell.fn(left, right)
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["pair_expand"]
+    check(launches == 1, f"mapsq {shape}: pair_expand launched {launches} "
+          "times in one join (the stacked form: once)")
+    overflowed = bool(ov.any())
+    check(multi or not overflowed, f"mapsq {shape}: a stage overflowed")
+    count, want = join_oracle(left.cols, right.cols)
+    got = out.cols[out.valid]
+    if overflowed:
+        check(within_multiset(got, want), f"mapsq {shape}: rows that are "
+              "not the oracle's")
+    else:
+        check(int(total.sum()) == count,
+              f"mapsq {shape}: {int(total.sum())} rows, the oracle {count}")
+        check(got.shape[0] == count and torch.equal(sorted_rows(got),
+                                                    sorted_rows(want)),
+              f"mapsq {shape}: rows differ from the oracle's as a multiset")
+    peak = torch.cuda.max_memory_allocated()
+    produced = int(got.shape[0])
+    del want, got
+    ms = sorted(time_steps(lambda: cell.fn(left, right), CELL_REPEATS))
+    work = card_work(device_breakdown(lambda: cell.fn(left, right), 2))
+    rec.update({"result_rows": count, "rows_produced": produced,
+                "rows_lost": count - produced, "overflow": overflowed,
+                "input_bytes": in_bytes, "peak_bytes": peak, "warm_ms": ms,
+                "warm_p50_ms": ms[len(ms) // 2], "device_launches": work[0],
+                "card_busy_ms": work[1],
+                "pair_expand_launches_per_call": launches})
+    log(f"cells mapsq {shape} {'x'.join(map(str, sizes))}: {produced} of "
+        f"the oracle's {count} rows (overflow {overflowed}), p50 "
+        f"{rec['warm_p50_ms']:.3f} ms, peak {peak / 1e9:.3f} GB, "
+        f"{work[0]} launches")
+    return rec
+
+
+def counted_cell(dev, arch: str, shape: str, batch) -> dict:
+    """(c) One cell on a one-rank mesh: the meta trace's FLOPs and
+    argument bytes against one step on real tensors on the card."""
+    from repro_torch import kernels
+    from repro_torch.configs import registry as R
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.obs.costs import nbytes
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    if batch is None:
+        cell = R.build_cell(arch, shape, mesh, False)
+    else:
+        mod = R.importlib.import_module(R.ARCHS[arch])
+        sh = dict(R.SHAPES_FOR(arch)[shape], batch=batch)
+        cell = R._build_lm(arch, mod.CONFIG, shape, sh, mesh, False)
+    meta_args = cell.local()
+    meta = count_step(cell.fn, meta_args)
+    args = cell.materialize(CELL_SEED, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    clear_launches(kernels)
+    card = count_step(cell.fn, args, memory=False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(kernels.LAUNCHES)
+    check(card["flops"] == meta["flops"],
+          f"{arch} {shape}: {card['flops']} FLOPs on the card, the meta "
+          f"trace {meta['flops']}")
+    check(nbytes(args) == nbytes(meta_args),
+          f"{arch} {shape}: argument bytes differ from the meta trace's")
+    check(card["kernels"] == meta["kernels"],
+          f"{arch} {shape}: kernel calls {card['kernels']} on the card, "
+          f"{meta['kernels']} traced")
+    predicted = meta["temp_bytes"] + nbytes(meta_args)
+    rec = {"flops": card["flops"], "argument_bytes": nbytes(args),
+           "bytes_traced": meta["bytes"], "bytes_card": card["bytes"],
+           "temp_bytes_traced": meta["temp_bytes"],
+           "max_memory_allocated": peak, "memory_before_step": base,
+           "peak_over_trace": round(peak / predicted, 4) if predicted else None,
+           "kernel_calls": card["kernels"], "kernel_launches": launches}
+    log(f"cells {arch} {shape}: {card['flops']:.4g} FLOPs card == meta, "
+        f"peak {peak / 1e9:.3f} GB against the trace's {predicted / 1e9:.3f}")
+    del args, card
+    torch.cuda.empty_cache()
+    return rec
+
+
+def cells_phase(dev, dryrun_all: bool = False) -> dict:
+    """Phase 15: (b) the dry-run of one cell a family on both meshes (a
+    CPU process, started first), (a) the mapsq cells for real on the
+    card, (c) the FLOP and argument-byte counts of four cells held on the
+    card to the meta trace; with `dryrun_all` the dry-run of every cell."""
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "dryrun"
+    started = start_dryrun(DRYRUN_FAMILY_CELLS, out_dir, dryrun_all)
+    try:
+        joins = {f"{s}/{'multi' if m else 'single'}": mapsq_cell_run(dev, s, m)
+                 for s, m in (("join_1m", False), ("join_16m", False),
+                              ("join_1m", True))}
+        counts = {f"{a}/{s}": counted_cell(dev, a, s, b)
+                  for a, s, b in COUNT_CELLS}
+    finally:  # a failed check ends the run: stop the dry-run with it
+        if started[0].poll() is None and sys.exc_info()[0] is not None:
+            started[0].kill()
+            started[0].communicate()
+    recs, wall = finish_dryrun(started, 900 if dryrun_all else 240)
+    want = {f"{a}/{s}/{m}" for a, s in DRYRUN_FAMILY_CELLS
+            for m in ("single", "multi")}
+    check(want <= set(recs), f"dry-run records missing: "
+          f"{sorted(want - set(recs))}")
+    terms = {k: record_terms(r) for k, r in recs.items()}
+    for k in sorted(terms if dryrun_all else want):
+        t = terms[k]
+        log(f"dryrun {k}: compute {t['t_compute_s']:.4g} s, memory "
+            f"{t['t_memory_s']:.4g} s, collective {t['t_collective_s']:.4g} "
+            f"s -> {t['bottleneck']}; {t['hbm_gib']} GiB a card")
+    reached: dict[str, list] = {}
+    for k, t in terms.items():
+        for name in t["kernel_calls"]:
+            reached.setdefault(name, []).append(k)
+    for k, c in counts.items():
+        for name in c["kernel_calls"]:
+            reached.setdefault(name, []).append(k + "/one-rank")
+    out = {"mapsq": joins, "counts": counts,
+           "dryrun": terms if dryrun_all else {k: terms[k] for k in want},
+           "dryrun_wall_s": round(wall, 1), "kernel_cells": reached,
+           "seconds": round(time.perf_counter() - t0, 1)}
+    log(f"cells phase: {out['seconds']} s (dry-run {wall:.1f} s)")
+    return out
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5244,6 +5475,12 @@ def main(argv: list[str]) -> int:
                     help="phase 9's NCCL run alone (on a host of several "
                     "cards: one rank per card at scale 1000) with the "
                     "one-process runs it is held to; no result line")
+    ap.add_argument("--cells-only", action="store_true",
+                    help="the build and phase 15 (the cells and the "
+                    "dry-run) alone; no result line")
+    ap.add_argument("--dryrun-all", action="store_true",
+                    help="with --cells-only: the dry-run of every cell on "
+                    "both meshes (84 records) instead of one a family")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -5302,6 +5539,12 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"train_ranks": out}, default=str), flush=True)
         print(card, flush=True)
         return 0
+    if args.cells_only:
+        out = cells_phase(dev, dryrun_all=args.dryrun_all)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"cells": out}, default=str), flush=True)
+        print(card, flush=True)
+        return 0
     if args.nccl_only:
         out = nccl_only(dev)
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -5327,6 +5570,7 @@ def main(argv: list[str]) -> int:
     train = train_phase(dev)
     exchanges = exchange_phase(dev)
     train_ranks = train_ranks_phase(dev)
+    cells = cells_phase(dev)
     for name, row in rows.items():
         row["launches"] = (full["launches"] | api_launches).get(name, 0)
         check(row["launches"] > 0, f"kernel {name} was not launched")
@@ -5341,13 +5585,22 @@ def main(argv: list[str]) -> int:
                         + train["segment_reduce_launches"]
                         + exchanges["segment_reduce_launches"]
                         + train_ranks["segment_reduce_launches"])
+    pair = rows["pair_expand"]
+    pair["launches_by_path"] = {
+        "full_scale": pair["launches"],
+        "cells_mapsq": sum(j["pair_expand_launches_per_call"]
+                           for j in cells["mapsq"].values())}
+    pair["launches"] += pair["launches_by_path"]["cells_mapsq"]
+    for name, row in rows.items():
+        row["cells"] = sorted(set(cells["kernel_cells"].get(name, [])))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     full = {k: full[k] for k in ("launches", "peak_bytes", "queries")}
     del sharded["store"]
     print(json.dumps({"full_scale": full, "matrix": matrix,
                       "serving": serving, "sharded": sharded,
                       "ranks": ranks, "lm": lm, "gnn": gnn, "train": train,
-                      "exchanges": exchanges, "train_ranks": train_ranks},
+                      "exchanges": exchanges, "train_ranks": train_ranks,
+                      "cells": cells},
                      default=str),
           flush=True)
     print(json.dumps({"stacked": stacked}), flush=True)

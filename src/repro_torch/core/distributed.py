@@ -539,9 +539,9 @@ def make_distributed_join(mesh: ShardMesh, bucket_capacity: int,
     """A join of two flat row-sharded relations ((local_shards * cap, c),
     row block k on this process's shard k: every block in one process,
     a rank's own block across ranks) -> (flat result, per-shard totals,
-    per-shard overflow flags) of the same shards. The reference's
-    `make_distributed_join_fn` is the same function before jit; torch
-    runs it eagerly, so one name does."""
+    per-shard overflow flags) of the same shards. The shuffle routes
+    over every axis of `mesh`; `make_distributed_join_fn` is the same
+    join under the reference's name and signature."""
     s = mesh.local_shards
 
     def shard(rel: Relation, schema) -> Relation:
@@ -563,3 +563,21 @@ def make_distributed_join(mesh: ShardMesh, bucket_capacity: int,
         return flat, total, ov
 
     return fn
+
+
+def make_distributed_join_fn(mesh, axis_names: tuple[str, ...],
+                             bucket_capacity: int, join_capacity: int,
+                             left_schema: tuple[str, ...],
+                             right_schema: tuple[str, ...]):
+    """The reference's `make_distributed_join_fn`: a join of two relations
+    whose rows are cut over the mesh axes `axis_names` (every axis of the
+    mesh, in its order), `make_distributed_join`'s function. `mesh` is a
+    rank context or its ShardMesh (each rank holds its own row block,
+    and the totals and flags are this rank's one entry), or a ShardMesh
+    of this process alone (every block here, one entry a shard)."""
+    shards = getattr(mesh, "mesh", mesh)
+    if tuple(axis_names) != tuple(shards.axis_names):
+        raise ValueError(f"rows cut over {tuple(axis_names)}: the port cuts "
+                         f"them over every axis of {shards.axis_names}")
+    return make_distributed_join(shards, bucket_capacity, join_capacity,
+                                 left_schema, right_schema)

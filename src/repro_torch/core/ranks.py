@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
 import logging
 import math
 import os
@@ -59,21 +60,26 @@ class RankContext:
         mesh = make_mesh(tuple(self.device_mesh.mesh.shape), names)
         object.__setattr__(mesh, "ranks", self)
         self.mesh = mesh
+        self._subgroups = _subset_groups(self.rank, mesh)
 
     def group(self, axis: "str | tuple[str, ...]"):
         """The process group of this rank's line along mesh axis `axis`:
         its ranks in order of their coordinate on that axis. A tuple of
-        every axis, outermost first, is the world group, in flat mesh
-        order (the reference's `_flat_rank` over those axes); one axis
-        in a tuple is that axis."""
+        axes, in the mesh's order, is the line over those axes, its
+        ranks in their flat row-major order (the reference's
+        `_flat_rank` over those axes, this rank's index there
+        `axis_index(axis)`): every axis is the world group, one axis that
+        axis, and any other subset a group built with the context."""
         names = tuple(self.device_mesh.mesh_dim_names)
         if isinstance(axis, tuple):
             if axis == names:
                 return dist.group.WORLD
-            if len(axis) != 1:
-                raise ValueError(f"a group over {axis}: only one axis or "
-                                 f"every axis {names} in order")
-            axis = axis[0]
+            if len(axis) == 1:
+                return self.device_mesh.get_group(axis[0])
+            if axis not in self._subgroups:
+                raise ValueError(f"a group over {axis}: axes of {names}, "
+                                 "in the mesh's order")
+            return self._subgroups[axis]
         return self.device_mesh.get_group(axis)
 
     def axis_size(self, axis: "str | tuple[str, ...]") -> int:
@@ -101,8 +107,8 @@ class RankContext:
         if math.prod(sizes) != self.world_size:
             raise ValueError(f"mesh {sizes} does not hold the "
                              f"{self.world_size} ranks")
-        mesh = init_device_mesh(self.device.type, sizes,
-                                mesh_dim_names=tuple(axis_names))
+        kind = "cpu" if self.device.type == "meta" else self.device.type
+        mesh = init_device_mesh(kind, sizes, mesh_dim_names=tuple(axis_names))
         return RankContext(self.rank, self.world_size, self.local_rank,
                            self.device, self.backend, mesh, self.control)
 
@@ -120,6 +126,33 @@ class RankContext:
         dist.barrier(group=self.control)
         dist.destroy_process_group()
         self.device_mesh = self.control = None  # later use raises
+
+
+def _subset_groups(rank: int, mesh: ShardMesh) -> dict:
+    """This rank's group over every subset of two or more of the mesh's
+    axes but all of them, keyed by the subset in the mesh's order. The
+    multi-pod train cells use each of a ("pod", "data", "model") mesh's
+    three: ("pod", "data") cuts the batch (`transformer.dp_axes(True)`),
+    ("data", "model") carries `specs.sq_norm`'s sum over the leaves cut
+    on both, and ("pod", "model") `specs.reduce_grads`' sum over the
+    replicas of a leaf cut on "data" alone (qwen2.5-32b's FSDP leaves at
+    train_4k). Every rank creates every line of every subset, in the
+    same order, as `new_group` needs; each line lists its ranks in their
+    flat order over the subset's axes."""
+    names, sizes = mesh.axis_names, mesh.axis_sizes
+    coords = list(itertools.product(*(range(s) for s in sizes)))
+    out: dict = {}
+    for k in range(2, len(names)):
+        for axes in itertools.combinations(range(len(names)), k):
+            lines: dict = {}
+            for flat, c in enumerate(coords):  # row-major: flat order
+                rest = tuple(c[i] for i in range(len(names)) if i not in axes)
+                lines.setdefault(rest, []).append(flat)
+            for members in lines.values():
+                group = dist.new_group(ranks=members)
+                if rank in members:
+                    out[tuple(names[i] for i in axes)] = group
+    return out
 
 
 def backend_for(device: torch.device, backend: "str | None") -> str:

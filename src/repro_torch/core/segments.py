@@ -112,6 +112,11 @@ def cumsum_i32(x: torch.Tensor) -> torch.Tensor:
     return _rows_cumsum(x)
 
 
+@cumsum_i32.register_fake
+def _cumsum_i32_fake(x):
+    return x.new_empty(x.shape, dtype=torch.int32)
+
+
 @cumsum_i32.register_vmap
 def _cumsum_i32_vmap(info, in_dims, x):
     return _rows_cumsum(kernels.lanes_first(x, in_dims[0], info.batch_size)), 0

@@ -3,8 +3,9 @@ CSR-backed minibatch pipeline (real neighbor sampling, fanout 15-10).
 
 Edges are ALWAYS emitted sorted by dst — the MapSQ Sort phase executed once
 at data-load time, so device-side aggregation is a sorted segment reduce.
-Batches are numpy arrays; `to_device` makes them tensors, and
-`shard_graph` makes one rank's shard of a node-sharded graph.
+Batches are numpy arrays; `to_device` makes them tensors, `shard_graph`
+one rank's shard of a node-sharded graph, and `edge_cut_graph` one
+rank's part of an edge-cut one.
 """
 from __future__ import annotations
 
@@ -242,6 +243,35 @@ def shard_graph(g: GraphBatch, ranks, stream_chunks: int = 0) -> GraphBatch:
                       dst=block(g.dst), node_mask=block(g.node_mask),
                       edge_mask=block(g.edge_mask),
                       graph_ids=block(g.graph_ids), extras=extras)
+
+
+def edge_cut_graph(g: GraphBatch, ranks) -> GraphBatch:
+    """This rank's part of the whole graph `g` (numpy arrays) in the edge
+    cut of the registry's small-graph cells (`models/gnn/common.py`):
+    every edge set (ids, mask and features) cut into contiguous slices of
+    E / world over every mesh axis of `ranks`, every node table whole, on
+    the ranks' device. Sizes that do not split raise."""
+    axes = tuple(ranks.mesh.axis_names)
+    ndev, r = ranks.axis_size(axes), ranks.axis_index(axes)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(ranks.device)
+
+    def cut(a):
+        if a.shape[0] % ndev:
+            raise ValueError(f"{a.shape[0]} edges do not split over {ndev} "
+                             "ranks")
+        k = a.shape[0] // ndev
+        return t(a[r * k:(r + 1) * k])
+
+    edge = set(_EDGE_EXTRAS)
+    for src, dst, mask, feats in _EXTRA_EDGE_SETS.values():
+        edge.update((src, dst, mask) + feats)
+    return GraphBatch(node_feat=t(g.node_feat), src=cut(g.src),
+                      dst=cut(g.dst), node_mask=t(g.node_mask),
+                      edge_mask=cut(g.edge_mask), graph_ids=t(g.graph_ids),
+                      extras={k: cut(v) if k in edge else t(v)
+                              for k, v in g.extras.items()})
 
 
 def to_device(g: GraphBatch, device=None) -> GraphBatch:

@@ -18,6 +18,14 @@ or, with the shuffle, route through `models/gnn/distributed.py`:
     reduce-scatter; with the shuffle (`aggregate_nodes`), the messages
     go to their owners and one sorted sum reduces them there.
 
+Edge cut: with a rank context of more than one rank and no `node_spec`
+(the reference's cells of every graph under a million nodes), each rank
+holds a contiguous slice of every edge set and every node table whole.
+Each aggregation sums this rank's edges into every node, then an
+all-reduce over every axis adds the ranks' parts (GSPMD's psum in the
+reference); `take_nodes` indexes the whole table. Every rank then holds
+the same node tensors and computes the same loss.
+
 Without a rank context (or at one rank) the node dim is whole, and
 `node_spec` and the shuffle are the plain path, as the reference on a
 (1, 1) mesh.
@@ -33,7 +41,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import distributed as D
 from repro_torch.core.segments import (
-    segment_softmax, segment_sum, sorted_segment_sum,
+    _take_clamped, segment_max, segment_softmax, segment_sum,
+    sorted_segment_sum,
 )
 from repro_torch.models.gnn.distributed import gather_nodes, scatter_add_nodes
 
@@ -68,6 +77,15 @@ def _sharded(node_spec: tuple[str, ...], ranks) -> bool:
     return bool(node_spec) and ranks is not None
 
 
+def edge_group(node_spec: tuple[str, ...], ranks):
+    """The world group when the edges are cut over every rank and the
+    node tables whole (ranks of more than one rank, no `node_spec`),
+    else None."""
+    if node_spec or ranks is None or ranks.world_size == 1:
+        return None
+    return ranks.group(tuple(ranks.mesh.axis_names))
+
+
 def aggregate(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int,
               edge_mask: torch.Tensor | None = None,
               sorted_edges: bool = True,
@@ -83,7 +101,9 @@ def aggregate(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int,
     Node-sharded (`node_spec` and `ranks`): `messages` / `dst` are this
     rank's edge slice with global dst ids and `n_nodes` this rank's row
     block; every rank sums its messages over every node, and a
-    reduce-scatter leaves each rank its block's sums.
+    reduce-scatter leaves each rank its block's sums. Edge-cut (`ranks`
+    without `node_spec`): this rank's edge slice summed into every node,
+    then all-reduced.
     """
     if edge_mask is not None:
         messages = torch.where(edge_mask[:, None], messages, 0)
@@ -96,6 +116,9 @@ def aggregate(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int,
         out = segment_sum(messages, dst, n_sum)
     if n_sum != n_nodes:
         out = D.reduce_scatter_rows(out, ranks.group(node_spec))
+    group = edge_group(node_spec, ranks)
+    if group is not None:
+        out = D.all_reduce_sum(out, group)
     return constrain_nodes(out, node_spec)
 
 
@@ -147,15 +170,27 @@ def aggregate_nodes(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int,
 
 def aggregate_softmax(scores: torch.Tensor, values: torch.Tensor,
                       dst: torch.Tensor, n_nodes: int,
-                      edge_mask: torch.Tensor) -> torch.Tensor:
+                      edge_mask: torch.Tensor, *, ranks=None) -> torch.Tensor:
     """Attention aggregation (GAT): segment softmax over incoming edges,
     then weighted sum. scores: (E, H); values: (E, H, D) -> (N, H, D).
     Every head at once: the segment ops treat each column on its own, so
-    the weighted sum is one sorted segment sum of width H * D."""
+    the weighted sum is one sorted segment sum of width H * D. Edge-cut
+    (`ranks`; see `aggregate`): the softmax's max over every rank's
+    edges (an all-reduce, no gradient: it only shifts) and its sum, then
+    the weighted sums, are all-reduced."""
     scores = torch.where(edge_mask[:, None], scores, -1e30)
-    a = segment_softmax(scores, dst, n_nodes)
+    group = edge_group((), ranks)
+    if group is None:
+        a = segment_softmax(scores, dst, n_nodes)
+    else:
+        mx = D.all_reduce_max(segment_max(scores, dst, n_nodes), group)
+        mx = torch.where(torch.isfinite(mx), mx, 0.0)
+        expd = torch.exp(scores - _take_clamped(mx, dst))
+        total = D.all_reduce_sum(segment_sum(expd, dst, n_nodes), group)
+        a = expd / _take_clamped(total, dst).clamp_min(1e-30)
     a = torch.where(edge_mask[:, None], a, 0.0)
-    return sorted_segment_sum(values * a[:, :, None], dst, n_nodes)
+    out = sorted_segment_sum(values * a[:, :, None], dst, n_nodes)
+    return out if group is None else D.all_reduce_sum(out, group)
 
 
 def remat(fn, on: bool):

@@ -53,7 +53,10 @@ def params_from_numpy(tree: dict, cfg: GATConfig, device=None) -> dict:
                              resolve_device(device))
 
 
-def apply(params: dict, g: C.GraphBatch, cfg: GATConfig) -> torch.Tensor:
+def apply(params: dict, g: C.GraphBatch, cfg: GATConfig, *,
+          ranks=None) -> torch.Tensor:
+    """Node logits (N, C). With `ranks`, `g` holds this rank's slice of
+    the edges and every node table whole (`common`'s edge cut)."""
     x = g.node_feat
     n = g.n_nodes
     for i, p in enumerate(params["layers"]):
@@ -63,7 +66,8 @@ def apply(params: dict, g: C.GraphBatch, cfg: GATConfig) -> torch.Tensor:
         s_dst = torch.einsum("nhd,hd->nh", h, p["a_dst"])
         scores = F.leaky_relu(s_src[g.src] + s_dst[g.dst],
                               cfg.negative_slope)  # (E, H)
-        agg = C.aggregate_softmax(scores, h[g.src], g.dst, n, g.edge_mask)
+        agg = C.aggregate_softmax(scores, h[g.src], g.dst, n, g.edge_mask,
+                                  ranks=ranks)
         agg = agg + p["b"][None]
         if last:
             x = agg.mean(dim=1)  # average heads -> (N, C)
@@ -73,8 +77,8 @@ def apply(params: dict, g: C.GraphBatch, cfg: GATConfig) -> torch.Tensor:
     return x
 
 
-def loss_fn(params, g: C.GraphBatch, cfg: GATConfig):
-    logits = apply(params, g, cfg)
+def loss_fn(params, g: C.GraphBatch, cfg: GATConfig, *, ranks=None):
+    logits = apply(params, g, cfg, ranks=ranks)
     labels = g.extras["labels"]
     mask = g.extras["train_mask"] & g.node_mask
     return C.masked_ce(logits, labels, mask)

@@ -151,7 +151,9 @@ def apply(params: dict, g: C.GraphBatch, cfg: GraphCastConfig, *,
           ranks=None) -> torch.Tensor:
     """Grid outputs (N, n_vars). With `ranks` and `cfg.node_spec`, `g` is
     this rank's shard (`data.graphs.shard_graph`, its grid and mesh row
-    blocks and edge slices) and so are the outputs."""
+    blocks and edge slices) and so are the outputs. With `ranks` and no
+    node_spec, `g` holds this rank's slice of every edge set and every
+    node table whole (`common`'s edge cut)."""
     ex = g.extras
     n_grid = g.n_nodes
     n_mesh = ex["mesh_feat_init"].shape[0]

@@ -81,7 +81,9 @@ def apply(params: dict, g: C.GraphBatch, cfg: MGNConfig, *,
           ranks=None) -> torch.Tensor:
     """Node outputs (N, d_out). With `ranks` and `cfg.node_spec`, `g` is
     this rank's shard (`data.graphs.shard_graph`) and so are the
-    outputs: its row block of the nodes."""
+    outputs: its row block of the nodes. With `ranks` and no node_spec,
+    `g` holds this rank's slice of the edges and every node table whole
+    (`common`'s edge cut; `data.graphs.edge_cut_graph`)."""
     dt = cfg.compute_dtype or g.node_feat.dtype
     x = C.layer_norm(C.mlp(params["enc_node"], g.node_feat.to(dt))).to(dt)
     e = C.layer_norm(C.mlp(params["enc_edge"],

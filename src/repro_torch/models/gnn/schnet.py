@@ -65,8 +65,11 @@ def rbf_expand(dist: torch.Tensor, cfg: SchNetConfig) -> torch.Tensor:
     return torch.exp(-gamma * (dist[:, None] - centers[None, :]) ** 2)
 
 
-def apply(params: dict, g: C.GraphBatch, cfg: SchNetConfig) -> torch.Tensor:
-    """Per-graph energies: (n_graphs,)."""
+def apply(params: dict, g: C.GraphBatch, cfg: SchNetConfig, *,
+          ranks=None) -> torch.Tensor:
+    """Per-graph energies: (n_graphs,). With `ranks`, `g` holds this
+    rank's slice of the edges and every node table whole (`common`'s
+    edge cut)."""
     pos = g.extras["positions"]  # (N, 3)
     species = g.extras["species"]  # (N,) int32
     n = g.n_nodes
@@ -76,7 +79,7 @@ def apply(params: dict, g: C.GraphBatch, cfg: SchNetConfig) -> torch.Tensor:
     for p in params["inter"]:
         filt = C.mlp(p["filter"], rbf, act=ssp, final_act=True)  # (E, D)
         msg = C.mlp(p["w_in"], x, act=ssp)[g.src] * filt  # cfconv
-        agg = C.aggregate(msg, g.dst, n, g.edge_mask)
+        agg = C.aggregate(msg, g.dst, n, g.edge_mask, ranks=ranks)
         x = x + C.mlp(p["w_out"], agg, act=ssp)
     atom_e = C.mlp(params["readout"], x, act=ssp)[:, 0]  # (N,)
     atom_e = torch.where(g.node_mask, atom_e, 0.0)
@@ -84,8 +87,8 @@ def apply(params: dict, g: C.GraphBatch, cfg: SchNetConfig) -> torch.Tensor:
     return sorted_segment_sum(atom_e, g.graph_ids, n_graphs)
 
 
-def loss_fn(params, g: C.GraphBatch, cfg: SchNetConfig):
-    energy = apply(params, g, cfg)
+def loss_fn(params, g: C.GraphBatch, cfg: SchNetConfig, *, ranks=None):
+    energy = apply(params, g, cfg, ranks=ranks)
     target = g.extras["energy"]  # (n_graphs,)
     gmask = g.extras["graph_mask"]
     err = torch.where(gmask, (energy - target) ** 2, 0.0)

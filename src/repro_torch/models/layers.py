@@ -99,20 +99,24 @@ def kv_chunk_len(s: int, kv_chunk: int) -> int:
 
 
 def online_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   kv_chunk: int, is_global: bool, window: int) -> torch.Tensor:
+                   kv_chunk: int, is_global: bool, window: int,
+                   q_offset: int = 0) -> torch.Tensor:
     """Causal attention over KV chunks with a running (max, sum, out), the
     flash-attention recurrence: never materializes the full (Sq, Sk) score
-    matrix. q (already scaled), k, v: (B, S, H|K, Dh). Local layers
-    (`is_global` false) add a sliding-window mask of width `window`.
-    Returns (B, S, H*Dh) float32."""
+    matrix. q (already scaled): (B, Sq, H, Dh), the queries of positions
+    q_offset .. q_offset + Sq - 1; k, v: (B, Sk, K, Dh), the keys of
+    positions 0 .. Sk - 1 (Sq = Sk and no offset: self-attention over
+    the whole sequence). Local layers (`is_global` false) add a
+    sliding-window mask of width `window`. Returns (B, Sq, H*Dh)
+    float32."""
     b, s, h, dh = q.shape
     n_kv = k.shape[2]
     g = h // n_kv
-    q_idx = torch.arange(s, dtype=torch.int32, device=q.device)
+    q_idx = q_offset + torch.arange(s, dtype=torch.int32, device=q.device)
     m = torch.full((b, n_kv, g, s), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, n_kv, g, s), dtype=torch.float32, device=q.device)
     o = torch.zeros((b, n_kv, g, s, dh), dtype=torch.float32, device=q.device)
-    for c0 in range(0, s, kv_chunk):
+    for c0 in range(0, k.shape[1], kv_chunk):
         kc = k[:, c0:c0 + kv_chunk]
         vc = v[:, c0:c0 + kv_chunk]
         sc_ = _grouped_scores(q, kc)  # (B, K, G, Sq, C)

@@ -113,7 +113,7 @@ def embedding_bag_local(table: torch.Tensor, flat_ids: torch.Tensor,
 
 
 def _sharded_lookup_local(tables, ids: torch.Tensor, *,
-                          ranks: "RankContext"):
+                          ranks: "RankContext", meta_cap: "int | None" = None):
     """This rank's part of the sharded lookup: route each of its ids to
     the rank that owns the row, gather there, route the rows back.
 
@@ -126,6 +126,10 @@ def _sharded_lookup_local(tables, ids: torch.Tensor, *,
     exchanges move exactly the rows there are; every table's rows travel
     back in one exchange. Their backward is the reverse exchange, and
     each table's gradient the scatter-add of its rows' gradients.
+
+    On meta tensors (a traced step: no counts to read) every rank sends
+    and receives `meta_cap` ids per owner, the reference's bucket
+    capacity; without it a meta lookup raises.
     """
     ep, er = ranks.axis_size(TABLE_AXIS), ranks.axis_index(TABLE_AXIS)
     group = ranks.group(TABLE_AXIS)
@@ -133,10 +137,18 @@ def _sharded_lookup_local(tables, ids: torch.Tensor, *,
     flat = ids.reshape(-1).long().clamp(0, ep * r_local - 1)
     owner = torch.div(flat, r_local, rounding_mode="floor")
     order = torch.sort(owner, stable=True).indices
-    send_counts = torch.bincount(owner, minlength=ep)
-    recv_counts = D.exchange(send_counts, group)
-    counts = torch.stack([send_counts, recv_counts]).tolist()
-    want = D.exchange(flat[order], group, counts[0], counts[1])
+    if ids.device.type == "meta":
+        if meta_cap is None:
+            raise ValueError("a lookup on meta tensors needs its per-owner "
+                             "counts (meta_cap)")
+        counts = [[meta_cap] * ep] * 2
+        send = flat.new_empty(ep * meta_cap)
+    else:
+        send_counts = torch.bincount(owner, minlength=ep)
+        recv_counts = D.exchange(send_counts, group)
+        counts = torch.stack([send_counts, recv_counts]).tolist()
+        send = flat[order]
+    want = D.exchange(send, group, counts[0], counts[1])
     local = want - er * r_local
     rows = torch.cat([t[local] for t in tables], dim=1)
     back = D.exchange(rows, group, counts[1], counts[0])
@@ -145,13 +157,15 @@ def _sharded_lookup_local(tables, ids: torch.Tensor, *,
     return back[inv].split([t.shape[1] for t in tables], dim=1)
 
 
-def make_sharded_lookup(ranks: "RankContext"):
+def make_sharded_lookup(ranks: "RankContext", meta_cap: "int | None" = None):
     """lookup_fn(tables, flat_ids) -> (rows of each table) for `forward`,
     `bce_loss` and `retrieval_scores`: the tables row-sharded over the
     "model" axis of `ranks` (`shard_params`), each rank passing its own
-    slice of the id stream."""
+    slice of the id stream. `meta_cap`: the ids per owner of a lookup on
+    meta tensors (see `_sharded_lookup_local`)."""
     def lookup(tables, flat_ids):
-        return _sharded_lookup_local(tables, flat_ids, ranks=ranks)
+        return _sharded_lookup_local(tables, flat_ids, ranks=ranks,
+                                     meta_cap=meta_cap)
 
     return lookup
 

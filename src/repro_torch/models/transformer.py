@@ -370,11 +370,19 @@ class MeshLayout:
       vocab (the owned rows gathered, then summed), the head by vocab
       (`ce_loss`'s logsumexp across the shards); the MoE block
       expert-parallel from the ranks' sequence slices;
+    - heads that do not split over "model" (wq's columns cut inside a
+      head, as the reference's spec cuts them for 24, 40 or 4 heads over
+      16): the attention's weights are all-gathered over "model" and
+      the attention runs sequence-parallel, each rank's queries over its
+      sequence slice against the keys and values all-gathered along the
+      sequence (it needs `seq_shard`); no all-reduce after it;
     - `fsdp`: a weight's "data" cut all-gathered just before its use,
-      with the backward reduce-scattering its gradient to the block."""
+      with the backward reduce-scattering its gradient to the block;
+    - a ("pod", "data", "model") mesh: the data axes are ("pod", "data")
+      (`dp_axes(True)`), FSDP and ZeRO-1 cut over "data" alone."""
 
     def __init__(self, cfg: TransformerConfig, ranks: "RankContext",
-                 specs: dict):
+                 specs: dict, seq_shard: "bool | None" = None):
         names = tuple(ranks.mesh.axis_names)
         if EXPERT_AXIS not in names or "data" not in names:
             raise ValueError(f"a training mesh over (data, model), not "
@@ -383,19 +391,23 @@ class MeshLayout:
         self.model = ranks.axis_size(EXPERT_AXIS)
         self.m = ranks.axis_index(EXPERT_AXIS)
         self.mgroup = ranks.group(EXPERT_AXIS)
-        self.dp = dp_axes(False)
+        self.dp = dp_axes("pod" in names)
         self.n_data = ranks.axis_size(self.dp)
         self.dgroup = ranks.group(self.dp)
-        self.seq = cfg.seq_shard and self.model > 1
+        seq = cfg.seq_shard if seq_shard is None else seq_shard
+        self.seq = seq and self.model > 1
         token_axes = tuple(a for a in names if ranks.axis_size(a) > 1
                            and (a in self.dp or (a == EXPERT_AXIS
                                                  and self.seq)))
         self.token_group = ranks.group(token_axes) if token_axes else None
         self.token_ranks = ranks.axis_size(token_axes) if token_axes else 1
         h, kv = cfg.n_heads, cfg.n_kv_heads
-        if h % self.model:
-            raise ValueError(f"{h} heads do not split over {self.model} "
-                             "model ranks")
+        # heads that do not split over "model" (wq cut inside a head):
+        # the attention runs sequence-parallel on the gathered weights
+        self.heads_tp = h % self.model == 0
+        if not self.heads_tp:
+            self.n_q, self.n_kv, self.kv_keep = h, kv, None
+            return
         self.n_q = h // self.model
         kv_cut = EXPERT_AXIS in S.axes_of(specs["blocks"]["attn"]["wk"])
         g = h // kv
@@ -448,6 +460,55 @@ class MeshLayout:
             return D.reduce_scatter_rows(y.movedim(1, 0),
                                          self.mgroup).movedim(0, 1)
         return D.all_reduce_sum(y, self.mgroup)
+
+    def whole_attn(self, p: dict) -> L.AttnParams:
+        """One layer's attention weights with their "model" cuts
+        all-gathered (backward: reduce-scatter)."""
+        spec = self.specs["blocks"]["attn"]
+        whole = {}
+        for name, w in p["attn"].items():
+            for dim, e in enumerate(S.norm(tuple(spec[name])[1:], w.dim())):
+                if EXPERT_AXIS in S.entry_axes(e) and self.model > 1:
+                    w = S.gather_dim(w, self.mgroup, dim, grad=True)
+            whole[name] = w
+        return _attn_params({"attn": whole})
+
+    def attention(self, p: dict, h: torch.Tensor, cfg: TransformerConfig, *,
+                  is_global: bool, window: int, theta: float):
+        """(attention output, post-RoPE K, V) of one layer on this rank:
+        the output summed over "model" (this rank's sequence slice of it
+        under seq_shard), K and V of the whole sequence and of this
+        rank's KV heads (all of them when the heads do not split)."""
+        qk = (p["attn"].get("qnorm"), p["attn"].get("knorm"))
+        if self.heads_tp:
+            out, k, v = _attention_prefill_cached(
+                _attn_params(p), self.enter(h), cfg, is_global=is_global,
+                window=window, theta=theta, qk=qk,
+                heads=(self.n_q, self.n_kv, self.kv_keep))
+            return self.exit(out), k, v
+        if not self.seq:
+            raise ValueError(f"{cfg.n_heads} heads do not split over "
+                             f"{self.model} model ranks: the attention "
+                             "runs sequence-parallel, under seq_shard")
+        ap = self.whole_attn(p)
+        s_loc = h.shape[1]
+        start = self.m * s_loc
+        positions = start + torch.arange(s_loc, dtype=torch.int32,
+                                         device=h.device)[None, :]
+        q, k, v = L._project_qkv(ap, h, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.d_head)
+        if qk[0] is not None:
+            q = L.rms_norm(q, qk[0])
+            k = L.rms_norm(k, qk[1])
+        q = L.rope(q, positions, theta)
+        k = S.gather_dim(L.rope(k, positions, theta), self.mgroup, 1,
+                         grad=True)
+        v = S.gather_dim(v, self.mgroup, 1, grad=True)
+        out = L.online_softmax(
+            q * (cfg.d_head**-0.5), k, v,
+            kv_chunk=L.kv_chunk_len(k.shape[1], cfg.kv_chunk),
+            is_global=is_global, window=window, q_offset=start)
+        return out.to(h.dtype) @ ap.wo, k, v
 
     def data_mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean over the data axes of a 0-d metric (no gradient)."""
@@ -569,17 +630,18 @@ def _block(x, p, cfg: TransformerConfig, is_global: bool, window: int,
     (x, post-RoPE K, V, the FFN's drop count or None; see `_ffn`). With
     `lay` the block is this rank's share (its weights gathered here, so
     a remat gathers them again in the backward)."""
-    heads = None
-    if lay is not None:
+    if lay is None:
+        attn_out, kc, vc = _attention_prefill_cached(
+            _attn_params(p), L.rms_norm(x, p["ln1"]), cfg,
+            is_global=is_global, window=window, theta=theta,
+            qk=(p["attn"].get("qnorm"), p["attn"].get("knorm")),
+        )
+    else:
         p = lay.layer_weights(p)
-        heads = (lay.n_q, lay.n_kv, lay.kv_keep)
-    h = L.rms_norm(x, p["ln1"])
-    attn_out, kc, vc = _attention_prefill_cached(
-        _attn_params(p), h if lay is None else lay.enter(h), cfg,
-        is_global=is_global, window=window, theta=theta,
-        qk=(p["attn"].get("qnorm"), p["attn"].get("knorm")), heads=heads,
-    )
-    x = x + (attn_out if lay is None else lay.exit(attn_out))
+        attn_out, kc, vc = lay.attention(p, L.rms_norm(x, p["ln1"]), cfg,
+                                         is_global=is_global, window=window,
+                                         theta=theta)
+    x = x + attn_out
     h2 = L.rms_norm(x, p["ln2"])
     y, n = _ffn(p, h2, cfg, decode=False, ranks=ranks,
                 count_dropped=count_dropped, lay=lay)
@@ -818,8 +880,9 @@ def make_train_step(cfg: TransformerConfig, opt_cfg: AdamWConfig,
     the loss metrics are the last micro-batch's. Metrics are 0-d tensors
     on the device (no host sync).
 
-    `ranks` (a ("data", "model") mesh of more than one rank): the params
-    are this rank's blocks by `param_specs(cfg, False, model size)`
+    `ranks` (a ("data", "model") or ("pod", "data", "model") mesh of
+    more than one rank): the params are this rank's blocks by
+    `param_specs(cfg, multi_pod, model size)`
     (`shard_params`), the opt state `adamw_init(params, specs, ranks)`'s (m and v cut by ZeRO-1 over "data"), and the batch
     this rank's rows of the global batch (its data coordinate's block;
     `data.tokens.data_rows`). Each rank seeds its backward with 1 /
@@ -830,7 +893,8 @@ def make_train_step(cfg: TransformerConfig, opt_cfg: AdamWConfig,
     over the data groups; aux and grad_norm are global. At one rank the
     step is the one-process step."""
     if ranks is not None and ranks.world_size > 1:
-        specs = param_specs(cfg, False, ranks.axis_size(EXPERT_AXIS))
+        specs = param_specs(cfg, "pod" in ranks.mesh.axis_names,
+                            ranks.axis_size(EXPERT_AXIS))
         return _mesh_train_step(cfg, opt_cfg, n_micro, ranks, specs)
     loss_fn = make_loss_fn(cfg)
 
@@ -891,10 +955,29 @@ def _mesh_train_step(cfg, opt_cfg, n_micro, ranks, specs):
 # Serving: prefill + decode
 # ---------------------------------------------------------------------------
 
-def make_prefill_step(cfg: TransformerConfig, ranks=None, dropped=None):
+def make_prefill_step(cfg: TransformerConfig, ranks=None, dropped=None,
+                      specs: "dict | None" = None):
     """prefill: (params, tokens (B, S)) -> (next (B,) int32, kc, vc);
     kc/vc: (L, B, S, K, Dh) in the config's dtype. `ranks`, `dropped`:
-    as `forward`'s."""
+    as `forward`'s (the serving layout, `serve_specs`).
+
+    `specs` (`param_specs`; `ranks` a ("data", "model") or ("pod",
+    "data", "model") mesh): the reference's prefill cells, the params
+    cut by the training layout and the forward `MeshLayout`'s (Megatron
+    tensor parallelism, the sequence cut between blocks): tokens are
+    this rank's rows, kc / vc its rows and its KV heads (all of them
+    when the heads do not split over "model"), the next tokens the
+    argmax over every vocab shard."""
+    if specs is not None:
+        lay = MeshLayout(cfg, ranks, specs)
+
+        def mesh_prefill_step(params, tokens):
+            logits, kc, vc = prefill_mesh(params, tokens, cfg, lay)
+            return (vocab_argmax(logits[:, 0], lay), kc.to(cfg.dtype),
+                    vc.to(cfg.dtype))
+
+        return mesh_prefill_step
+
     def prefill_step(params, tokens):
         logits, _, (kc, vc) = forward(params, tokens, cfg, collect_cache=True,
                                       ranks=ranks, dropped=dropped)
@@ -902,6 +985,33 @@ def make_prefill_step(cfg: TransformerConfig, ranks=None, dropped=None):
         return next_tok, kc.to(cfg.dtype), vc.to(cfg.dtype)
 
     return prefill_step
+
+
+def prefill_mesh(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+                 lay: MeshLayout):
+    """The prompt through `lay`'s forward: (the last position's logits
+    over this rank's vocab columns (B, 1, V_pad / model), kc, vc)."""
+    x, _, (kc, vc) = _forward_trunk(params, tokens, cfg, collect_cache=True,
+                                    lay=lay)
+    last = x[:, -1:]
+    if lay.seq:  # the last position is the last model rank's
+        last = S.gather_dim(last, lay.mgroup, 1)[:, -1:]
+    head = _head_weight(params, cfg, lay)
+    return _mask_padding(last @ head.to(cfg.dtype), cfg, lay.vocab_start), \
+        kc, vc
+
+
+def vocab_argmax(logits: torch.Tensor, lay: MeshLayout) -> torch.Tensor:
+    """The argmax (int32) over the whole vocab of logits cut by vocab over
+    "model" (this rank's columns from `lay.vocab_start`): the first
+    index of the largest value, as one argmax over the whole row."""
+    vals, idx = torch.max(logits, dim=-1)
+    idx = idx + lay.vocab_start
+    if lay.model > 1:
+        vals = S.gather_dim(vals[None], lay.mgroup, 0)
+        idx = S.gather_dim(idx[None], lay.mgroup, 0)
+        idx = idx.gather(0, torch.argmax(vals, dim=0)[None])[0]
+    return idx.to(torch.int32)
 
 
 def decode_logits(params: dict, kc: torch.Tensor, vc: torch.Tensor, pos: int,
@@ -928,16 +1038,124 @@ def decode_logits(params: dict, kc: torch.Tensor, vc: torch.Tensor, pos: int,
     return _head(params, x, cfg)[:, 0, :]
 
 
-def make_serve_step(cfg: TransformerConfig, ranks=None):
+def make_serve_step(cfg: TransformerConfig, ranks=None,
+                    specs: "dict | None" = None,
+                    seq_axes: tuple[str, ...] = (EXPERT_AXIS,)):
     """decode: (params, kc, vc, pos, tokens (B,)) -> (next (B,), kc, vc).
     kc/vc: (L, B, S_max, K, Dh), updated in place and returned; pos: host
-    int, the current cache length."""
+    int, the current cache length. `ranks`: the serving layout, as
+    `decode_logits`'.
+
+    `specs` (`param_specs`): the reference's decode cells, the params cut
+    by the training layout and the KV cache on its sequence dim over
+    `seq_axes` ("model" when the batch is cut over the data axes, every
+    axis for one sequence); see `decode_logits_mesh`."""
+    if specs is not None:
+        lay = MeshLayout(cfg, ranks, specs, seq_shard=False)
+
+        def mesh_serve_step(params, kc, vc, pos, tokens):
+            logits = decode_logits_mesh(params, kc, vc, pos, tokens, cfg, lay,
+                                        seq_axes)
+            return vocab_argmax(logits, lay), kc, vc
+
+        return mesh_serve_step
+
     def serve_step(params, kc, vc, pos, tokens):
         logits = decode_logits(params, kc, vc, pos, tokens, cfg, ranks)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         return nxt, kc, vc
 
     return serve_step
+
+
+@torch.no_grad()
+def decode_logits_mesh(params: dict, kc: torch.Tensor, vc: torch.Tensor,
+                       pos: int, tokens: torch.Tensor, cfg: TransformerConfig,
+                       lay: MeshLayout, seq_axes: tuple[str, ...]):
+    """One decode step across ranks, the KV cache cut on its sequence dim:
+    this rank's logits (B, V_pad / model) over its vocab columns.
+
+    kc / vc (L, B, S_loc, K, Dh) hold every KV head of this rank's
+    sequence slice (its flat index over `seq_axes`, outermost first);
+    tokens are this rank's rows. Each layer projects the new token
+    (tensor-parallel when the heads split over "model", then the queries
+    and keys all-gathered over it; else on the gathered weights), writes
+    its K / V on the rank whose slice holds `pos`, attends this rank's
+    slice, and combines the ranks' (max, sum, weighted values) in
+    float32 with all-reduces over `seq_axes`: the softmax over the
+    whole cache. The FFN is `MeshLayout`'s, the MoE block the one-hot
+    dispatch over this rank's experts, summed."""
+    ranks = lay.ranks
+    seq_axes = tuple(a for a in ranks.mesh.axis_names if a in seq_axes)
+    seq_group = (ranks.group(seq_axes)
+                 if ranks.axis_size(seq_axes) > 1 else None)
+    lo = ranks.axis_index(seq_axes) * kc.shape[2]
+    x = _embed(params, tokens, cfg, lay)[:, None, :]  # (B, 1, D)
+    window = (cfg.sliding_window if cfg.sliding_window > 0
+              else kc.shape[2] * ranks.axis_size(seq_axes) + 1)
+    layers = _layers(params["blocks"], cfg.n_layers)
+    for i, (p, is_global, theta) in enumerate(
+            zip(layers, cfg.is_global_layers(), cfg.rope_thetas())):
+        p = lay.layer_weights(p)
+        h = L.rms_norm(x, p["ln1"])
+        x = x + _decode_attn_mesh(p, h, kc[i], vc[i], pos, lo, cfg,
+                                  is_global, window, theta, lay, seq_group)
+        h2 = L.rms_norm(x, p["ln2"])
+        ep_ranks = ranks if lay.model > 1 else None
+        x = x + _ffn(p, h2, cfg, decode=True, ranks=ep_ranks, lay=lay)[0]
+    x = L.rms_norm(x, params["ln_f"])
+    head = _head_weight(params, cfg, lay)
+    return _mask_padding(x @ head.to(cfg.dtype), cfg, lay.vocab_start)[:, 0]
+
+
+def _decode_attn_mesh(p, x, kc, vc, pos, lo, cfg, is_global, window, theta,
+                      lay: MeshLayout, seq_group):
+    """One layer's decode attention on this rank (see
+    `decode_logits_mesh`); kc / vc: (B, S_loc, K, Dh) views of this
+    rank's slice of positions lo .. lo + S_loc - 1."""
+    b, dh = x.shape[0], cfg.d_head
+    ap = _attn_params(p) if lay.heads_tp else lay.whole_attn(p)
+    n_q = lay.n_q if lay.heads_tp else cfg.n_heads
+    q, k_new, v_new = L._project_qkv(ap, x, n_q, lay.n_kv, dh)
+    qk = (p["attn"].get("qnorm"), p["attn"].get("knorm"))
+    if qk[0] is not None:
+        q = L.rms_norm(q, qk[0])
+        k_new = L.rms_norm(k_new, qk[1])
+    posb = torch.arange(pos, pos + 1, dtype=torch.int32,
+                        device=x.device).expand(b, 1)
+    q = L.rope(q, posb, theta)
+    k_new = L.rope(k_new, posb, theta)
+    if lay.heads_tp and lay.model > 1:
+        q = S.gather_dim(q, lay.mgroup, 2)
+        if lay.n_kv < cfg.n_kv_heads:
+            k_new = S.gather_dim(k_new, lay.mgroup, 2)
+            v_new = S.gather_dim(v_new, lay.mgroup, 2)
+    s_loc = kc.shape[1]
+    if lo <= pos < lo + s_loc:
+        kc[:, pos - lo] = k_new[:, 0].to(kc.dtype)
+        vc[:, pos - lo] = v_new[:, 0].to(vc.dtype)
+    scores = L._grouped_scores(q * dh**-0.5, kc)  # (B, K, G, 1, S_loc)
+    k_idx = lo + torch.arange(s_loc, dtype=torch.int32, device=x.device)
+    mask = k_idx <= pos
+    if not is_global:
+        mask = mask & ((pos - k_idx) < window)
+    scores = torch.where(mask, scores, L.NEG_INF)
+    m = scores.amax(dim=-1)
+    pr = torch.exp(scores - m[..., None])
+    total = pr.sum(dim=-1)
+    o = torch.einsum("bkgqs,bskd->bkgqd", pr, vc.float())
+    if seq_group is not None:  # the softmax over every rank's slice
+        top = D.all_reduce_max(m, seq_group)
+        a = torch.exp(m - top)
+        total = D.all_reduce_sum(total * a, seq_group)
+        o = D.all_reduce_sum(o * a[..., None], seq_group)
+    o = (o / total[..., None]).permute(0, 3, 1, 2, 4).reshape(
+        b, 1, cfg.n_heads * dh)
+    if not lay.heads_tp:
+        return o.to(x.dtype) @ ap.wo
+    width = lay.n_q * dh
+    mine = o[..., lay.m * width:(lay.m + 1) * width]
+    return lay.exit(mine.to(x.dtype) @ ap.wo)
 
 
 def _decode_attn(ap, x, kc, vc, pos, cfg, is_global, window, theta, qk):

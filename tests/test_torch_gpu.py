@@ -1212,3 +1212,26 @@ def test_lm_train_step_on_the_card_equals_the_cpu(cuda, arch, n_micro):
         torch.testing.assert_close(m1[k].cpu(), m0[k], rtol=1e-4, atol=1e-4)
     for a, b in zip(TT.leaves(p1), TT.leaves(p0)):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+
+
+# -- the cells (phase 15's count check, at one-rank meshes) ----------------------
+
+
+@pytest.mark.parametrize("arch,shape", [("gat-cora", "full_graph_sm"),
+                                        ("deepfm", "serve_p99"),
+                                        ("mapsq", "join_1m")])
+def test_cell_counts_on_the_card_equal_the_meta_trace(cuda, arch, shape):
+    """One step of the cell on a one-rank mesh: the FLOPs, the bytes
+    (each kernel one op) and the kernel calls on the card equal the meta
+    trace's exactly."""
+    from repro_torch.configs.registry import build_cell
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.launch.dryrun import count_step
+
+    cell = build_cell(arch, shape, make_mesh((1, 1), ("data", "model")),
+                      False)
+    meta = count_step(cell.fn, cell.local(), memory=False)
+    card = count_step(cell.fn, cell.materialize(0, cuda), memory=False)
+    assert card["flops"] == meta["flops"]
+    assert card["bytes"] == meta["bytes"]
+    assert card["kernels"] == meta["kernels"]

@@ -72,6 +72,11 @@ def test_port_imports_without_jax_or_reference():
         "repro_torch.checkpoint.manager",
         "repro_torch.train",
         "repro_torch.train.trainer",
+        "repro_torch.configs.mapsq_lubm",
+        "repro_torch.launch.mesh",
+        "repro_torch.launch.dryrun",
+        "repro_torch.obs.collectives",
+        "repro_torch.obs.costs",
     ):
         assert m in mods, m
     code = (
