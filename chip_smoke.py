@@ -232,15 +232,31 @@ Phases (any failure ends the run with a non-zero exit and no "ok" line):
      its FLOPs, argument bytes and kernel calls the meta trace's exactly,
      its max_memory_allocated logged beside the trace's temp + argument
      bytes.
- 16. summary — the stacked-forms line, the kernels line (each kernel with
+ 16. the engine's and server's modes, on phase 5's store: (a) J1 and J2
+     on the legacy greedy planner (optimize=False) and on the optimizer:
+     rows equal each other and `sparql/baseline.reference_rows` (over the
+     triples of the queries' constant predicates), the optimized bucket
+     strictly smaller, a warm repeat 1 dispatch and 0 compiles with one
+     pair_expand launch a join, warm p50 (CUDA events); (b) the eager
+     engine with double-on-overflow sizing (compiled=False,
+     exact_count_pass=False) on phase 5's queries: rows equal the default
+     engine's as multisets, no count pass, pair_expand launched on every
+     MR join attempt, retries logged; at scale 2 the card's retries, rows
+     and stats the CPU port's, and MemoryError past max_capacity 1 (the
+     first overflow) on both; (c) one engine behind the default server, the synchronous one
+     (decode_workers=0) and the unbatched one (batch_execution=False),
+     two rounds of bursts of phase 7's texts: rows equal the
+     single-query rows, no stacked dispatch unbatched, no decode pool
+     synchronous; round 2's p50 of each.
+ 17. summary — the stacked-forms line, the kernels line (each kernel with
      the cells that reach it), the card line, then the result line.
 
-Each of the paths of phases 3, 5, 6, 7, 8, 9, 11, 12, 13, 14 and 15 runs
-with the launch counts set to 0 just before it and read just after (in
-phases 9, 13 and 14 on each rank); the kernels line reports each kernel's
-launches from the path that runs it (segment_reduce's: the kernel API's,
-phase 11's, 12's, 13's and 14's, also apart; pair_expand's: phase 5's and
-15's mapsq joins, also apart).
+Each of the paths of phases 3, 5, 6, 7, 8, 9, 11, 12, 13, 14, 15 and 16
+runs with the launch counts set to 0 just before it and read just after
+(in phases 9, 13 and 14 on each rank); the kernels line reports each
+kernel's launches from the path that runs it (segment_reduce's: the
+kernel API's, phase 11's, 12's, 13's and 14's, also apart;
+pair_expand's: phase 5's, 15's mapsq joins and 16's modes, also apart).
 
 Needs the repository's src/ beside it and one CUDA card; exits non-zero
 without them.
@@ -284,6 +300,11 @@ one-card reference takes it in two micro-batches. No result line.
 runs the build and phase 15 alone (no result line); with --dryrun-all
 its dry-run covers every cell on both meshes (84 records under
 build/dryrun/).
+
+    python3 chip_smoke.py --modes-only
+
+runs the build and phase 16 alone, after generating phase 5's store and
+the default engine's rows on it (no result line).
 
     python3 chip_smoke.py --kernels-only [--src OTHER/src]
 
@@ -5440,6 +5461,252 @@ def cells_phase(dev, dryrun_all: bool = False) -> dict:
     return out
 
 
+# -- phase 16: the engine's and server's modes ----------------------------------
+
+MODES_WARM = 10  # warm repeats of a J query on each planner, (a)
+# (c): requests a burst, each server; Q9's decode is ~0.5 s a request
+MODES_BURSTS = {"Q1": 8, "Q2": 8, "Q4": 8, "Q7": 8, "S1": 8, "Q9": 2}
+
+
+def pair_expand_launches(kernels, fn):
+    """`fn()` with the launch counts set to 0 just before it: its result
+    and pair_expand's launches in it."""
+    clear_launches(kernels)
+    out = fn()
+    return out, kernels.LAUNCHES.get("pair_expand", 0)
+
+
+def event_ms(fn) -> tuple:
+    """`fn()` between two CUDA events: its result and their ms."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def j_shapes_part(dev, store, kernels) -> dict:
+    """(a) J1/J2 on the greedy planner and on the optimizer."""
+    import numpy as np
+
+    from repro_torch.sparql import lubm
+    from repro_torch.sparql.baseline import reference_rows
+    from repro_torch.sparql.engine import QueryEngine
+    from repro_torch.sparql.parser import parse
+    from repro_torch.sparql.store import TripleStore
+
+    engines = {"greedy": QueryEngine(store, device=dev, optimize=False),
+               "optimized": QueryEngine(store, device=dev)}
+    out = {}
+    for name, text in lubm.J_QUERIES.items():
+        q = parse(text)
+        # every pattern's predicate is a constant: the oracle over the
+        # triples that carry one of them is the oracle over the store
+        pids = [store.dictionary.lookup(tp.p) for tp in q.patterns]
+        sub = store.triples[np.isin(store.triples[:, 1], pids)]
+        oracle = row_multiset(
+            reference_rows(TripleStore(sub, store.dictionary), q))
+        rec = {}
+        for label, eng in engines.items():
+            pq = eng.prepare(text)
+            backends = pq._program.plan.join_backends
+            if label == "greedy":
+                check(set(backends) == {"mr"} and not pq._program.plan.prune,
+                      f"{name}: the greedy plan is not the legacy one")
+            cold, cold_pe = pair_expand_launches(kernels, pq.run)
+            lat = []
+            clear_launches(kernels)
+            for _ in range(MODES_WARM):
+                warm, ms = event_ms(pq.run)
+                lat.append(ms)
+                check(warm.stats.n_dispatches == 1
+                      and warm.stats.n_compiles == 0,
+                      f"{name} [{label}] warm: {warm.stats}")
+            warm_pe = kernels.LAUNCHES.get("pair_expand", 0)
+            joins = sum(b == "mr" for b in backends) - sum(
+                pq._program.cross_flags)
+            check(warm_pe == joins * MODES_WARM, f"{name} [{label}]: "
+                  f"{warm_pe} pair_expand launches in {MODES_WARM} warm "
+                  f"runs of {joins} MR joins")
+            check(row_multiset(cold.rows) == oracle
+                  and row_multiset(warm.rows) == oracle,
+                  f"{name} [{label}]: rows != reference_rows")
+            check(cold.stats.peak_join_bucket <= eng.max_capacity,
+                  f"{name} [{label}]: bucket past max_capacity")
+            rec[label] = {
+                "rows": len(warm.rows), "backends": list(backends),
+                "peak_join_bucket": cold.stats.peak_join_bucket,
+                "warm_p50_ms": statistics.median(lat),
+                "pair_expand_cold": cold_pe,
+                "pair_expand_warm_run": warm_pe // MODES_WARM,
+                "pair_expand": cold_pe + warm_pe,
+            }
+        g, o = rec["greedy"], rec["optimized"]
+        check(o["peak_join_bucket"] < g["peak_join_bucket"],
+              f"{name}: optimized bucket {o['peak_join_bucket']} not below "
+              f"greedy's {g['peak_join_bucket']}")
+        log(f"  modes (a) {name}: {rec}")
+        out[name] = rec
+    return out
+
+
+def overflow_part(dev, store, texts, card_rows, kernels) -> dict:
+    """(b) the eager engine with double-on-overflow sizing: at full scale
+    against the default engine's rows, at scale 2 against the CPU port."""
+    from repro_torch.sparql import lubm
+    from repro_torch.sparql.engine import QueryEngine
+    from repro_torch.sparql.store import TripleStore
+
+    def mode_engine(s, device, **kw):
+        return QueryEngine(s, device=device, compiled=False,
+                           exact_count_pass=False, **kw)
+
+    eng = mode_engine(store, dev)
+    out = {}
+    for name in card_rows:
+        pq = eng.prepare(texts[name])
+        prog = pq._program
+        check(not prog.opt_groups and not prog.union_groups,
+              f"{name}: not a BGP")
+        t = time.perf_counter()
+        res, launched = pair_expand_launches(kernels, pq.run)
+        secs = time.perf_counter() - t
+        st = res.stats
+        # every dispatch of a BGP's double-on-overflow joins is one MR
+        # join attempt but for the cross joins
+        attempts = st.n_dispatches - sum(prog.cross_flags)
+        check(row_multiset(res.rows) == row_multiset(card_rows[name]),
+              f"{name}: double-on-overflow rows != default engine's")
+        check(st.n_count_passes == 0, f"{name}: a count pass ran")
+        check(launched == attempts, f"{name}: {launched} pair_expand "
+              f"launches for {attempts} MR join attempts")
+        out[name] = {"rows": len(res.rows), "n_retries": st.n_retries,
+                     "n_dispatches": st.n_dispatches,
+                     "peak_join_bucket": st.peak_join_bucket,
+                     "pair_expand": launched, "s": secs}
+        log(f"  modes (b) {name}: {out[name]}")
+
+    small = lubm.generate(scale=SMALL_SCALE, join_shapes=True,
+                          skew_shapes=True)
+    terms = [small.dictionary.decode(i) for i in range(len(small.dictionary))]
+    pair = {d: mode_engine(TripleStore.from_arrays(small.triples, terms), d)
+            for d in (dev, "cpu")}
+    retries = {}
+    for name in card_rows:
+        res, launched = pair_expand_launches(
+            kernels, pair[dev].prepare(texts[name]).run)
+        cpu = pair["cpu"].prepare(texts[name]).run()
+        for f in ("n_retries", "n_dispatches", "n_count_passes",
+                  "peak_join_bucket"):
+            check(getattr(res.stats, f) == getattr(cpu.stats, f),
+                  f"{name} scale {SMALL_SCALE}: {f} card "
+                  f"{getattr(res.stats, f)} != cpu {getattr(cpu.stats, f)}")
+        check(res.rows == cpu.rows, f"{name} scale {SMALL_SCALE}: rows")
+        retries[name] = (res.stats.n_retries, res.stats.peak_join_bucket)
+        out[name]["pair_expand"] += launched
+    name = max(retries, key=lambda k: retries[k][0])
+    check(retries[name][0] > 0, f"no retry at scale {SMALL_SCALE}: {retries}")
+    # a join that overflows doubles past a max_capacity of 1 and raises,
+    # on the card and on the CPU
+    for d in (dev, "cpu"):
+        cut = mode_engine(TripleStore.from_arrays(small.triples, terms), d,
+                          max_capacity=1)
+        raised = False
+        try:
+            cut.prepare(texts[name]).run()
+        except MemoryError:
+            raised = True
+        check(raised, f"{name} [{d}]: no MemoryError past max_capacity 1")
+    log(f"  modes (b) scale {SMALL_SCALE}: (retries, bucket) card == cpu "
+        f"{retries}; MemoryError past max_capacity 1 on {name}")
+    return {"full": out, "small_retries": retries}
+
+
+def servers_part(dev, store, texts, card_rows, kernels) -> dict:
+    """(c) one engine behind the default, the synchronous and the unbatched
+    server, in turn; two rounds of bursts each, round 2 timed."""
+    from repro_torch.serve.sparql_server import SPARQLServer
+    from repro_torch.sparql.engine import QueryEngine
+
+    engine = QueryEngine(store, device=dev)
+    for name in MODES_BURSTS:  # cold runs (calibration, compile) first
+        engine.prepare(texts[name]).run()
+    out = {}
+    for label, kw in (("default", {}), ("sync", {"decode_workers": 0}),
+                      ("unbatched", {"batch_execution": False})):
+        srv = SPARQLServer(engine, max_batch=16, max_wait_s=0.02, **kw)
+        try:
+            dispatched = engine.stacked_dispatches
+            clear_launches(kernels)
+            lat = []
+            for rnd in (1, 2):
+                for name, n in MODES_BURSTS.items():
+                    got = burst(srv, texts[name], n, card_rows[name],
+                                card_rows[name])
+                    if rnd == 2:
+                        lat += got
+            launched = kernels.LAUNCHES.get("pair_expand", 0)
+            decode = srv.stats()["pipeline"]["decode"]
+        finally:
+            srv.close()
+        stacked = engine.stacked_dispatches - dispatched
+        lat.sort()
+        out[label] = {
+            "requests": len(lat), "p50_ms": statistics.median(lat) * 1e3,
+            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3,
+            "stacked_dispatches": stacked, "pair_expand": launched,
+            "decode_pool": decode is not None,
+        }
+        log(f"  modes (c) {label} server: {out[label]}")
+    check(out["default"]["stacked_dispatches"] > 0
+          and out["default"]["decode_pool"], "the default server did not "
+          "stack or has no decode pool")
+    check(out["unbatched"]["stacked_dispatches"] == 0,
+          "the unbatched server stacked a dispatch")
+    check(not out["sync"]["decode_pool"], "the synchronous server has a "
+          "decode pool")
+    return out
+
+
+def modes_inputs(dev) -> dict:
+    """What phase 16 takes from phase 5 when run alone: the full-scale
+    store, the texts and the default engine's rows on the card."""
+    from repro_torch.sparql import lubm
+    from repro_torch.sparql.engine import QueryEngine
+
+    t = time.perf_counter()
+    store = lubm.generate(scale=FULL_SCALE, join_shapes=True, skew_shapes=True)
+    log(f"modes inputs: LUBM scale {FULL_SCALE}, {len(store)} triples, "
+        f"generated in {time.perf_counter() - t:.1f} s (host)")
+    texts = {**lubm.QUERIES, **lubm.S_QUERIES}
+    engine = QueryEngine(store, device=dev)
+    rows = {name: engine.query(text) for name, text in texts.items()}
+    return {"store": store, "texts": texts, "card_rows": rows}
+
+
+def modes_phase(dev, full: dict) -> dict:
+    """Phase 16: the legacy planner, double-on-overflow sizing and the
+    synchronous and unbatched servers on phase 5's store."""
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    store, texts, card_rows = full["store"], full["texts"], full["card_rows"]
+    j = j_shapes_part(dev, store, kernels)
+    over = overflow_part(dev, store, texts, card_rows, kernels)
+    servers = servers_part(dev, store, texts, card_rows, kernels)
+    launches = (sum(r["pair_expand"] for q in j.values() for r in q.values())
+                + sum(r["pair_expand"] for r in over["full"].values())
+                + sum(r["pair_expand"] for r in servers.values()))
+    out = {"j_shapes": j, "double_on_overflow": over, "servers": servers,
+           "pair_expand_launches": launches,
+           "seconds": round(time.perf_counter() - t0, 1)}
+    log(f"phase 16 (the engine's modes): {out['seconds']} s; pair_expand "
+        f"launched {launches} times")
+    return out
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5481,6 +5748,10 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--dryrun-all", action="store_true",
                     help="with --cells-only: the dry-run of every cell on "
                     "both meshes (84 records) instead of one a family")
+    ap.add_argument("--modes-only", action="store_true",
+                    help="the build and phase 16 (the engine's and "
+                    "server's modes) alone, on a store of its own; no "
+                    "result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -5545,6 +5816,12 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"cells": out}, default=str), flush=True)
         print(card, flush=True)
         return 0
+    if args.modes_only:
+        out = modes_phase(dev, modes_inputs(dev))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"modes": out}, default=str), flush=True)
+        print(card, flush=True)
+        return 0
     if args.nccl_only:
         out = nccl_only(dev)
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -5571,6 +5848,7 @@ def main(argv: list[str]) -> int:
     exchanges = exchange_phase(dev)
     train_ranks = train_ranks_phase(dev)
     cells = cells_phase(dev)
+    modes = modes_phase(dev, full)
     for name, row in rows.items():
         row["launches"] = (full["launches"] | api_launches).get(name, 0)
         check(row["launches"] > 0, f"kernel {name} was not launched")
@@ -5589,8 +5867,10 @@ def main(argv: list[str]) -> int:
     pair["launches_by_path"] = {
         "full_scale": pair["launches"],
         "cells_mapsq": sum(j["pair_expand_launches_per_call"]
-                           for j in cells["mapsq"].values())}
-    pair["launches"] += pair["launches_by_path"]["cells_mapsq"]
+                           for j in cells["mapsq"].values()),
+        "engine_modes": modes["pair_expand_launches"]}
+    pair["launches"] += (pair["launches_by_path"]["cells_mapsq"]
+                         + pair["launches_by_path"]["engine_modes"])
     for name, row in rows.items():
         row["cells"] = sorted(set(cells["kernel_cells"].get(name, [])))
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -5600,7 +5880,7 @@ def main(argv: list[str]) -> int:
                       "serving": serving, "sharded": sharded,
                       "ranks": ranks, "lm": lm, "gnn": gnn, "train": train,
                       "exchanges": exchanges, "train_ranks": train_ranks,
-                      "cells": cells},
+                      "cells": cells, "modes": modes},
                      default=str),
           flush=True)
     print(json.dumps({"stacked": stacked}), flush=True)

@@ -7,9 +7,11 @@ coprocessing split: it must only GROUP and DISPATCH. Host-side result
 decode — the expensive Python loop that turns device buffers into row
 dicts — is handed off through `Deferred` slots: `batch_fn` may return, per
 request, a zero-argument callable wrapped in `Deferred`, and the batcher
-routes it to its decode pool (serve/decode.py) instead of running it
-inline, so dispatch of batch k+1 overlaps decode of batch k and
-per-request futures resolve from the decode side.
+routes it to the configured decode pool (serve/decode.py) instead of
+running it inline. With a pool attached, dispatch of batch k+1 overlaps
+decode of batch k and per-request futures resolve from the decode side;
+without one, deferred slots are resolved inline on the batcher thread
+(the synchronous mode).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 
 class BatchTimeout(TimeoutError):
@@ -83,12 +85,12 @@ class Request:
 
 class MicroBatcher:
     def __init__(self, batch_fn: Callable[[list[Any]], list[Any]],
-                 max_batch: int, decode_pool: Any,
-                 max_wait_s: float = 0.005):
+                 max_batch: int, max_wait_s: float = 0.005,
+                 decode_pool: Optional[Any] = None):
         self.batch_fn = batch_fn
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
-        self.decode_pool = decode_pool  # serve.decode.DecodePool
+        self.decode_pool = decode_pool  # serve.decode.DecodePool (or None)
         self.q: queue.Queue[Request] = queue.Queue()
         self._stop = threading.Event()
         self.t = threading.Thread(target=self._loop, daemon=True)
@@ -97,7 +99,7 @@ class MicroBatcher:
         self.n_requests = 0
         self.n_deferred = 0  # result slots handed to the decode stage
         # cumulative wall time the batcher thread spent inside batch_fn
-        # (group + dispatch; decode is NOT in here) —
+        # (group + dispatch; with a decode pool, decode is NOT in here) —
         # the open-loop bench reads this to report dispatch-stage busyness
         self.dispatch_s = 0.0
         # arrival-size histogram: batch size -> number of batches formed
@@ -118,12 +120,17 @@ class MicroBatcher:
         return r.result
 
     def _resolve(self, r: Request, res: Any) -> None:
-        """Finalize one request: deferred slots go to the decode pool,
-        plain slots resolve now."""
+        """Finalize one request: deferred slots go to the decode pool (or
+        run inline when none is attached), plain slots resolve now."""
         if isinstance(res, Deferred):
             self.n_deferred += 1
-            self.decode_pool.submit(r, res.fn)
-            return
+            if self.decode_pool is not None:
+                self.decode_pool.submit(r, res.fn)
+                return
+            try:
+                res = res.fn()
+            except BaseException as e:
+                res = e
         r.result = res
         r.event.set()
 

@@ -3,21 +3,22 @@
 Requests (query strings) flow through the MicroBatcher; the engine executes
 each batch — partial matching per pattern, then the operator tree on
 device. Batching amortizes dispatch overhead exactly like the paper's
-CPU-assigns / GPU-computes split: each batch is routed through
-`engine.run_batch_pipelined`, which coalesces same-shape batchmates into
-single stacked (vmapped) device dispatches: N warm identical-shape
-requests cost ceil(N / width) launches, not N — and cross-shape padded
-stacking merges near-miss plan shapes into those dispatches too. Mixed
-batches fall back per plan group; `stats()["batched"]` reports the
-batch-width histogram, queries-per-dispatch and the padding ledger so
-operators can watch the coalescing win.
+CPU-assigns / GPU-computes split — and with `batch_execution` (default on)
+the batch is routed through `engine.run_batch_pipelined`, which coalesces
+same-shape batchmates into single stacked (vmapped) device dispatches: N
+warm identical-shape requests cost ceil(N / width) launches, not N — and
+cross-shape padded stacking merges near-miss plan shapes into those
+dispatches too. Mixed batches fall back per plan group; `stats()
+["batched"]` reports the batch-width histogram, queries-per-dispatch and
+the padding ledger so operators can watch the coalescing win.
 
 The hot path is a TWO-STAGE pipeline. The batcher thread only groups and
 dispatches: each request's host decode (device→host transfer + row
 materialisation) comes back as a PendingDecode and is handed to a bounded
-`DecodePool` (serve/decode.py) of DECODE_WORKERS threads, so dispatch of
-batch k+1 overlaps decode of batch k and per-request futures resolve from
-the decode side. Per-request wall-clock deadlines
+`DecodePool` (serve/decode.py), so dispatch of batch k+1 overlaps decode
+of batch k and per-request futures resolve from the decode side.
+`decode_workers=0` restores the synchronous batcher (decode inline on the
+batcher thread). Per-request wall-clock deadlines
 (`query(text, timeout_ms=...)`) raise QueryTimeoutError and mark the
 request abandoned so the decode stage skips work nobody will read.
 
@@ -68,9 +69,6 @@ from repro_torch.sparql.engine import (
     UpdateResult,
 )
 from repro_torch.sparql.parser import ParseError
-
-DECODE_WORKERS = 2  # decode-pool threads resolving PendingDecode slots
-DECODE_QUEUE = 64  # backpressure bound on undecoded results
 
 
 @dataclasses.dataclass
@@ -142,11 +140,20 @@ class SPARQLServer:
     max_wait_s: float = 0.002
     prepared_cache_entries: int = 256
     default_timeout_s: float = 30.0  # per-request deadline when none given
+    batch_execution: bool = True  # stack same-shape batchmates per dispatch
+    # decode pipeline: worker threads resolving PendingDecode slots off the
+    # batcher thread (0 = synchronous decode on the batcher thread)
+    decode_workers: int = 2
+    decode_queue: int = 64  # backpressure bound on undecoded results
 
     def __post_init__(self):
-        self._decode_pool = DecodePool(DECODE_WORKERS, DECODE_QUEUE)
+        self._decode_pool = (
+            DecodePool(self.decode_workers, self.decode_queue)
+            if self.decode_workers > 0 else None
+        )
         self._batcher = MicroBatcher(self._run_batch, self.max_batch,
-                                     self._decode_pool, self.max_wait_s)
+                                     self.max_wait_s,
+                                     decode_pool=self._decode_pool)
         self._prepared: OrderedDict[str, PreparedQuery] = OrderedDict()
         # request-path instruments live on the engine's registry so one
         # render_prometheus() scrape covers both layers; stats() reads the
@@ -213,11 +220,12 @@ class SPARQLServer:
             m_batches.set_total(self._batcher.n_batches)
             m_deferred.set_total(self._batcher.n_deferred)
             m_dispatch_s.set_total(self._batcher.dispatch_s)
-            ds = self._decode_pool.stats()
-            m_decoded.set_total(ds["decoded"])
-            m_dec_errors.set_total(ds["errors"])
-            m_dec_skipped.set_total(ds["skipped"])
-            m_depth.set(ds["depth"])
+            if self._decode_pool is not None:
+                ds = self._decode_pool.stats()
+                m_decoded.set_total(ds["decoded"])
+                m_dec_errors.set_total(ds["errors"])
+                m_dec_skipped.set_total(ds["skipped"])
+                m_depth.set(ds["depth"])
 
         m.register_collector(_collect)
 
@@ -288,10 +296,21 @@ class SPARQLServer:
                 pending.append((i, pq, cached))
         if not pending:
             return outs
-        outcomes = self.engine.run_batch_pipelined(
-            [pq for _, pq, _ in pending],
-            traces=[traces[i] for i, _, _ in pending],
-        )
+        if self.batch_execution:
+            outcomes = self.engine.run_batch_pipelined(
+                [pq for _, pq, _ in pending],
+                traces=[traces[i] for i, _, _ in pending],
+            )
+        else:
+            # one query at a time; each run is a public call a lockstep
+            # engine's other ranks make too
+            outcomes = []
+            for i, pq, _ in pending:
+                try:
+                    with self.engine._leading("run", [pq]):
+                        outcomes.append(pq._run_pending(traces[i]))
+                except Exception as e:
+                    outcomes.append(e)
         for (i, pq, cached), oc in zip(pending, outcomes):
             if isinstance(oc, Exception):
                 outs[i] = QueryError("execution", str(oc), query=queries[i])
@@ -454,10 +473,14 @@ class SPARQLServer:
                 "deferred": self._batcher.n_deferred,
                 "dispatch_s": self._batcher.dispatch_s,
                 "device_time_s": eng.device_time_s,
-                "decode": self._decode_pool.stats(),
+                "decode": (
+                    self._decode_pool.stats()
+                    if self._decode_pool is not None else None
+                ),
             },
         }
 
     def close(self) -> None:
         self._batcher.close()
-        self._decode_pool.close()
+        if self._decode_pool is not None:
+            self._decode_pool.close()

@@ -46,7 +46,8 @@ Two execution modes share one planner:
 
   eager (compiled=False) — the per-operator loop, kept for differential
       testing: per join, a COUNT pass, host sync of the cardinality,
-      exactly-sized (next-pow2) buffer, EXPAND pass.
+      exactly-sized (next-pow2) buffer, EXPAND pass; or double-on-overflow
+      when exact_count_pass=False.
 
 The engine runs on the card unless it is given device="cpu"; the store
 stages its scans on the engine's device.
@@ -61,7 +62,7 @@ import pathlib
 import threading
 import time
 from collections import OrderedDict
-from typing import TYPE_CHECKING, ClassVar, NamedTuple
+from typing import TYPE_CHECKING, NamedTuple
 
 import numpy as np
 import torch
@@ -87,17 +88,6 @@ log = logging.getLogger(__name__)
 # LIMIT stand-in when only OFFSET was given (far above max_capacity, safe
 # from int32 overflow in `offset + limit`).
 _NO_LIMIT = 1 << 30
-
-# Lane cap per stacked run_batch dispatch: it bounds device memory per
-# dispatch, and chunks are cut at its pow-2 floor.
-MAX_BATCH_WIDTH = 64
-# Cross-shape padded stacking: run_batch coalesces near-miss PlanShapes
-# (identical but for pow-2 scan caps) into one stacked dispatch by padding
-# scans up to the group's max caps — padding rows are valid=False, hence
-# invisible to every masked operator. A merge is taken only when every
-# member shape is already warm and the padding waste (padded/real scan-cell
-# ratio - 1) stays at or under this limit.
-PAD_WASTE_LIMIT = 2.0
 
 
 @dataclasses.dataclass
@@ -555,22 +545,32 @@ class QueryEngine:
     # where the engine runs: None = the card ("cuda"); construction raises
     # when there is none, unless the caller asks for "cpu"
     device: "str | torch.device | None" = None
+    exact_count_pass: bool = True  # Mars two-pass vs double-on-overflow
     max_capacity: int = 1 << 24
     compiled: bool = True  # one-dispatch compiled pipeline vs eager loop
     plan_cache_entries: int = 256
+    optimize: bool = True  # cost-based optimizer (False: legacy greedy)
     # physical join algebra: None = per-node cost-based choice (the
     # optimizer's selectivity x skew rule), "mr" / "matrix" = force every
     # join slot onto that backend (differential tests, benchmarks)
     join_backend: str | None = None
     warmup_path: str | None = None  # saved bucket signatures (save_cache)
+    # lane cap per stacked run_batch dispatch: it bounds device memory per
+    # dispatch, and chunks are cut at its pow-2 floor
+    max_batch_width: int = 64
+    # cross-shape padded stacking: run_batch coalesces near-miss PlanShapes
+    # (identical but for pow-2 scan caps) into one stacked dispatch by
+    # padding scans up to the group's max caps — padding rows are
+    # valid=False, hence invisible to every masked operator. Merges are
+    # taken only when every member shape is already warm and the padding
+    # waste stays under pad_waste_limit (padded/real cell ratio - 1).
+    pad_stacking: bool = True
+    pad_waste_limit: float = 2.0
     # per-query span tracing: None (default) = off, zero overhead beyond
     # `trace is not None` checks on the dispatch path. The server shares
     # this Tracer so its request spans and the engine's dispatch spans
     # land in one trace tree.
     tracer: Tracer | None = None
-    # cross-shape padded stacking in run_batch (see _coalesce_groups); the
-    # sharded engine has none
-    pad_stacking: ClassVar[bool] = True
 
     def __post_init__(self):
         if self.join_backend not in (None, "mr", "matrix"):
@@ -951,7 +951,7 @@ class QueryEngine:
             are derived as the elementwise max of the members' calibrated
             caps, which only exist once each member has run;
           * the cost guard: padding waste (padded/real scan-cell ratio
-            minus 1) must stay <= PAD_WASTE_LIMIT, so one huge outlier
+            minus 1) must stay <= pad_waste_limit, so one huge outlier
             shape cannot inflate every lane's scan buffers.
         """
         buckets: OrderedDict[tuple, list[plan_ir.PlanShape]] = OrderedDict()
@@ -979,7 +979,7 @@ class QueryEngine:
             )
             padded = n_q * sum(target)
             ok = all(e is not None for e in entries)
-            if ok and (padded - real) / real > PAD_WASTE_LIMIT:
+            if ok and (padded - real) / real > self.pad_waste_limit:
                 self.pad_rejects += 1
                 ok = False
             if not ok:
@@ -1060,9 +1060,9 @@ class QueryEngine:
                 prepared[idxs[0]], group, defer, traces[idxs[0]]
             )
             pos = 1
-        # chunk at the pow-2 floor of the lane cap: MAX_BATCH_WIDTH bounds
+        # chunk at the pow-2 floor of the lane cap: max_batch_width bounds
         # device memory per dispatch, so it must never round UP
-        width_cap = plan_ir.floor_pow2(MAX_BATCH_WIDTH)
+        width_cap = plan_ir.floor_pow2(self.max_batch_width)
         while pos < len(idxs):
             chunk = idxs[pos:pos + width_cap]
             pos += len(chunk)
@@ -1147,7 +1147,7 @@ class QueryEngine:
         """ONE stacked dispatch for a chunk of warm same-shape queries."""
         entry = self.plan_cache.get(shape)
         n = len(chunk)
-        width = plan_ir.bucket_width(n, MAX_BATCH_WIDTH)
+        width = plan_ir.bucket_width(n, self.max_batch_width)
         # pad trailing lanes with lane 0's inputs; lane_active masks them
         lanes = [ctxs[i] for i in chunk] + [ctxs[chunk[0]]] * (width - n)
         inp = self._stage_chunk(shape, lanes, n)
@@ -1312,8 +1312,11 @@ class QueryEngine:
         )
 
     def _build_program(self, q: Query) -> _Program:
+        # the sharded engine reports its shard count so the join ordering
+        # can weigh shuffle cost; single-device engines pass 1 (no-op)
         plan = optimizer.optimize(
-            q, self.store, n_shards=getattr(self, "n_shards", 1)
+            q, self.store, enabled=self.optimize,
+            n_shards=getattr(self, "n_shards", 1),
         )
         patterns = list(plan.all_patterns())
         opt_groups = tuple(
@@ -1391,7 +1394,7 @@ class QueryEngine:
             filters=specs,
             n_consts=prog.n_consts,
             has_slice=prog.has_slice,
-            prune=True,
+            prune=prog.plan.prune,
             join_backends=backends,
             scan_parts=self._scan_parts(prog, schemas),
         )
@@ -1572,21 +1575,39 @@ class QueryEngine:
             stats.peak_capacity = max(stats.peak_capacity, cap)
             stats.peak_join_bucket = max(stats.peak_join_bucket, cap)
             return mj.compact(out), total
-        stats.n_dispatches += 1
-        t0 = time.perf_counter()
-        total = int(mj.mr_join_count(left, right))
-        self._device_tick(stats, t0)
-        stats.n_count_passes += 1
-        cap = max(1, next_pow2(total))
-        stats.n_dispatches += 1
-        t0 = time.perf_counter()
-        out, _, overflow = mj.mr_join(left, right, capacity=cap)
-        ok = not bool(overflow)
-        self._device_tick(stats, t0)
-        assert ok
-        stats.peak_capacity = max(stats.peak_capacity, cap)
-        stats.peak_join_bucket = max(stats.peak_join_bucket, cap)
-        return out, total
+        if self.exact_count_pass:
+            stats.n_dispatches += 1
+            t0 = time.perf_counter()
+            total = int(mj.mr_join_count(left, right))
+            self._device_tick(stats, t0)
+            stats.n_count_passes += 1
+            cap = max(1, next_pow2(total))
+            stats.n_dispatches += 1
+            t0 = time.perf_counter()
+            out, _, overflow = mj.mr_join(left, right, capacity=cap)
+            ok = not bool(overflow)
+            self._device_tick(stats, t0)
+            assert ok
+            stats.peak_capacity = max(stats.peak_capacity, cap)
+            stats.peak_join_bucket = max(stats.peak_join_bucket, cap)
+            return out, total
+        # double-on-overflow: start at the larger input's capacity and
+        # retry at twice the bucket until the join fits
+        cap = max(left.capacity, right.capacity)
+        while True:
+            stats.n_dispatches += 1
+            t0 = time.perf_counter()
+            out, total, overflow = mj.mr_join(left, right, capacity=cap)
+            overflowed = bool(overflow)
+            self._device_tick(stats, t0)
+            stats.peak_capacity = max(stats.peak_capacity, cap)
+            stats.peak_join_bucket = max(stats.peak_join_bucket, cap)
+            if not overflowed:
+                return out, int(total)
+            stats.n_retries += 1
+            cap *= 2
+            if cap > self.max_capacity:
+                raise MemoryError(f"join result exceeds {self.max_capacity}")
 
     # -- compiled path -----------------------------------------------------
     def _canonicalize(
@@ -1834,7 +1855,7 @@ class QueryEngine:
         signatures a previous process persisted (save_cache /
         warmup_path), so a restarted server's first micro-batch dispatches
         warm."""
-        width_cap = plan_ir.floor_pow2(MAX_BATCH_WIDTH)
+        width_cap = plan_ir.floor_pow2(self.max_batch_width)
         for w, axes in entry.warm_layouts:
             if (
                 (w, axes) in entry.batched
@@ -2172,9 +2193,6 @@ class ShardedQueryEngine(QueryEngine):
     mesh: "dj.ShardMesh | None" = None
     axis_name: str = "shards"
     ranks: "RankContext | None" = None
-    # cross-shape padded stacking is single-device only: near-miss shapes
-    # stay per-shape groups here
-    pad_stacking: ClassVar[bool] = False
 
     def __post_init__(self):
         from repro_torch.sparql.sharded_store import ShardedTripleStore
@@ -2201,6 +2219,9 @@ class ShardedQueryEngine(QueryEngine):
                 "sharded execution is compiled-only (compiled=True)"
             )
         super().__post_init__()
+        # cross-shape padded stacking is single-device only: near-miss
+        # shapes stay per-shape groups here
+        self.pad_stacking = False
         # this rank's own shard (None: every shard here), and lockstep:
         # one thread at a time sends a call and makes it (see _leading)
         self._own_shard = None if self.ranks is None else self.ranks.rank
@@ -2593,7 +2614,7 @@ class ShardedQueryEngine(QueryEngine):
         lane's natural signature)."""
         entry = self.plan_cache.get(shape)
         n = len(chunk)
-        width = plan_ir.bucket_width(n, MAX_BATCH_WIDTH)
+        width = plan_ir.bucket_width(n, self.max_batch_width)
         lanes = [ctxs[i] for i in chunk] + [ctxs[chunk[0]]] * (width - n)
         inp = self._stage_chunk(shape, lanes, n)
         group.n_broadcast_scans += sum(1 for a in inp.scan_axes if a is None)

@@ -36,7 +36,7 @@ import dataclasses
 import math
 from typing import Callable, Sequence
 
-from repro_torch.core.planner import TriplePattern
+from repro_torch.core.planner import TriplePattern, plan_bgp
 from repro_torch.sparql import algebra
 from repro_torch.sparql.store import StoreStatistics, TripleStore
 
@@ -80,6 +80,7 @@ class OptimizedProgram:
     # physical algebra per join slot ("mr" | "matrix"), aligned with
     # join_ests; cross slots always carry "mr"
     join_backends: tuple[str, ...]
+    prune: bool
     trace: tuple[str, ...]
 
     @property
@@ -366,6 +367,7 @@ def _fmt_est(x: float) -> str:
 def _order_bgp(
     patterns: Sequence[TriplePattern],
     store: TripleStore,
+    enabled: bool,
     label: str,
     trace: list[str],
     filters: Sequence[algebra.FilterExpr] = (),
@@ -373,10 +375,26 @@ def _order_bgp(
 ) -> tuple[
     list[TriplePattern], tuple[bool, ...], list[float], list[str], _State
 ]:
-    """One BGP through the join_order pass."""
+    """One BGP through the join_order pass (or the legacy greedy)."""
+    leaf = store.estimate_cardinality
+    lookup = store.dictionary.lookup
+    if not enabled:
+        steps = plan_bgp(patterns, leaf)
+        ordered = [patterns[st.pattern_index] for st in steps]
+        flags = tuple(st.is_cross for st in steps[1:])
+        # estimates still reported for explain(), just not acted on; the
+        # legacy path always lowers to the MR backend
+        states = [
+            _pattern_state(tp, leaf, store.statistics, lookup)
+            for tp in ordered
+        ]
+        cur, ests = states[0], []
+        for st in states[1:]:
+            cur, _ = _join_states(cur, st)
+            ests.append(cur.card)
+        return ordered, flags, ests, ["mr"] * len(ests), cur
     order, flags, ests, backends, final, moved = order_patterns(
-        patterns, store.estimate_cardinality, store.statistics,
-        store.dictionary.lookup, filters, n_shards,
+        patterns, leaf, store.statistics, lookup, filters, n_shards
     )
     ordered = [patterns[i] for i in order]
     trace.append(
@@ -440,11 +458,14 @@ def _attach_filters(
     required: Sequence[TriplePattern],
     opt_groups: Sequence[Sequence[TriplePattern]],
     branches: Sequence[Sequence[TriplePattern]],
+    enabled: bool,
     trace: list[str],
 ) -> tuple[tuple[Stage, algebra.FilterExpr], ...]:
     """filter_pushdown: sink each conjunct to its deepest sound stage."""
     if not q.filters:
         return ()
+    if not enabled:
+        return tuple((("top",), expr) for expr in q.filters)
     req_scan_vars = [set(tp.variables()) for tp in required]
     req_all: set[str] = set().union(*req_scan_vars) if required else set()
     acc: set[str] = set(req_scan_vars[0]) if required else set()
@@ -569,22 +590,29 @@ def _prune_trace(
         )
 
 
-def optimize(q, store: TripleStore, n_shards: int = 1) -> OptimizedProgram:
-    """Run the pass pipeline over a parsed query. `n_shards` > 1 (the
-    sharded engine) adds the per-step shuffle-cost term to the join
-    ordering — movement between shards the plan can avoid by keeping joins
-    on already-aligned keys."""
+def optimize(
+    q, store: TripleStore, enabled: bool = True, n_shards: int = 1
+) -> OptimizedProgram:
+    """Run the pass pipeline over a parsed query.
+
+    `enabled=False` reproduces the pre-optimizer behaviour (legacy greedy
+    join order, every join on the MR backend, all filters evaluated at the
+    top, no pruning): the baseline the J1/J2 comparisons measure against.
+    `n_shards` > 1 (the sharded engine) adds the per-step shuffle-cost term
+    to the join ordering — movement between shards the plan can avoid by
+    keeping joins on already-aligned keys."""
     trace: list[str] = []
     required_vars = {v for tp in q.patterns for v in tp.variables()}
     _validate_optionals(q, required_vars)
 
     join_ests: list[float] = []
     join_backends: list[str] = []
-    est_filters = tuple(q.filters)
+    est_filters = tuple(q.filters) if enabled else ()
     req_state: _State | None = None
     if q.patterns:
         required, cross_flags, ests, bks, req_state = _order_bgp(
-            q.patterns, store, "required", trace, est_filters, n_shards
+            q.patterns, store, enabled, "required", trace, est_filters,
+            n_shards,
         )
         join_ests.extend(ests)
         join_backends.extend(bks)
@@ -595,8 +623,8 @@ def optimize(q, store: TripleStore, n_shards: int = 1) -> OptimizedProgram:
     opt_cross_flags: list[tuple[bool, ...]] = []
     for gi, group in enumerate(q.optionals):
         ordered, flags, ests, bks, g_state = _order_bgp(
-            list(group), store, f"optional[{gi}]", trace, est_filters,
-            n_shards,
+            list(group), store, enabled, f"optional[{gi}]", trace,
+            est_filters, n_shards,
         )
         opt_groups.append(tuple(ordered))
         opt_cross_flags.append(flags)
@@ -604,14 +632,18 @@ def optimize(q, store: TripleStore, n_shards: int = 1) -> OptimizedProgram:
         join_backends.extend(bks)
         joined, _ = _join_states(req_state, g_state)
         join_ests.append(joined.card)  # the left join's inner-join bucket
-        join_backends.append(_choose_backend(req_state, g_state, joined.card))
+        join_backends.append(
+            _choose_backend(req_state, g_state, joined.card)
+            if enabled
+            else "mr"
+        )
 
     branches: list[tuple[TriplePattern, ...]] = []
     branch_cross_flags: list[tuple[bool, ...]] = []
     for bi, branch in enumerate(q.unions):
         ordered, flags, ests, bks, b_state = _order_bgp(
-            list(branch), store, f"union[{bi}]", trace, est_filters,
-            n_shards,
+            list(branch), store, enabled, f"union[{bi}]", trace,
+            est_filters, n_shards,
         )
         branches.append(tuple(ordered))
         branch_cross_flags.append(flags)
@@ -622,17 +654,24 @@ def optimize(q, store: TripleStore, n_shards: int = 1) -> OptimizedProgram:
             join_ests.append(joined.card)
             join_backends.append(
                 _choose_backend(req_state, b_state, joined.card)
+                if enabled
+                else "mr"
             )
 
-    specs = _attach_filters(q, required, opt_groups, branches, trace)
-    _prune_trace(
-        q,
-        list(required)
-        + [tp for g in opt_groups for tp in g]
-        + [tp for b in branches for tp in b],
-        specs,
-        trace,
+    specs = _attach_filters(
+        q, required, opt_groups, branches, enabled, trace
     )
+    if enabled:
+        _prune_trace(
+            q,
+            list(required)
+            + [tp for g in opt_groups for tp in g]
+            + [tp for b in branches for tp in b],
+            specs,
+            trace,
+        )
+    else:
+        trace.append("optimizer disabled: legacy greedy order, filters at top")
     return OptimizedProgram(
         required=tuple(required),
         cross_flags=tuple(cross_flags),
@@ -643,5 +682,6 @@ def optimize(q, store: TripleStore, n_shards: int = 1) -> OptimizedProgram:
         filters=specs,
         join_ests=tuple(join_ests),
         join_backends=tuple(join_backends),
+        prune=enabled,
         trace=tuple(trace),
     )

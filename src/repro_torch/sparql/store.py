@@ -296,15 +296,15 @@ class PredicateSparse(NamedTuple):
     order: torch.Tensor  # (nnz,) COO row -> subject-sorted position
 
 
-# stacked-batch gathers kept per store (FIFO): each is W scan buffers
-STACKED_CACHE_ENTRIES = 32
-
-
 @dataclasses.dataclass
 class TripleStore:
     triples: np.ndarray  # (n, 3) int32 dictionary-encoded
     dictionary: TermDict
     scan_cache_entries: int = 512  # per cache; FIFO eviction
+    # stacked entries are up to batch-width times a solo entry's bytes, so
+    # they get a much smaller budget: the steady state this cache serves
+    # (the same warm micro-batch repeating) needs few distinct keys
+    stacked_cache_entries: int = 32
 
     def __post_init__(self):
         self.triples = np.asarray(self.triples, np.int32).reshape(-1, 3)
@@ -962,7 +962,7 @@ class TripleStore:
                 self._stacked_cache,
                 key,
                 (self.version, entry),
-                STACKED_CACHE_ENTRIES,
+                self.stacked_cache_entries,
             )
         else:
             self._stacked_hits += 1

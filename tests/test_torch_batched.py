@@ -20,7 +20,6 @@ from repro.sparql.engine import QueryEngine as JEngine
 from repro.sparql.store import store_from_string_triples as j_store
 from repro_torch.core import executor as t_ex
 from repro_torch.core.relation import Relation as TRelation
-from repro_torch.sparql import engine as t_engine
 from repro_torch.sparql.engine import QueryEngine as TEngine
 from repro_torch.sparql.store import store_from_string_triples as t_store
 
@@ -228,24 +227,11 @@ SCENARIOS = {
 }
 
 
-# the reference's engine fields that are module constants in the port
-PORT_CONSTANTS = {
-    "max_batch_width": "MAX_BATCH_WIDTH",
-    "pad_waste_limit": "PAD_WASTE_LIMIT",
-}
-
-
 @pytest.mark.parametrize("name", list(SCENARIOS))
-def test_run_batch_matches_reference(name, tmp_path, monkeypatch):
+def test_run_batch_matches_reference(name, tmp_path):
     scenario, triples, kw = SCENARIOS[name]
     j_eng = JEngine(j_store(triples()), **kw)
-    t_kw = {}
-    for k, v in kw.items():
-        if k in PORT_CONSTANTS:
-            monkeypatch.setattr(t_engine, PORT_CONSTANTS[k], v)
-        else:
-            t_kw[k] = v
-    t_eng = TEngine(t_store(triples()), device="cpu", **t_kw)
+    t_eng = TEngine(t_store(triples()), device="cpu", **kw)
     want = scenario(j_eng, tmp_path)
     got = scenario(t_eng, tmp_path)
     assert got == want

@@ -373,6 +373,37 @@ def test_engine_on_the_card_equals_the_cpu(cuda, backend):
         assert on_card.stats.n_compiles == 0
 
 
+@pytest.mark.parametrize("mode", [
+    {"optimize": False},
+    {"exact_count_pass": False},
+    {"exact_count_pass": False, "compiled": False},
+], ids=["greedy", "double_on_overflow", "double_on_overflow_eager"])
+def test_engine_modes_on_the_card_equal_the_cpu(cuda, mode):
+    """The legacy planner and double-on-overflow sizing: the card's rows
+    and ExecStats (retries included) are the CPU's."""
+    from repro_torch.sparql import lubm
+    from repro_torch.sparql.engine import QueryEngine
+    from repro_torch.sparql.store import TripleStore
+
+    base = lubm.generate(scale=1, join_shapes=True, skew_shapes=True)
+    terms = [base.dictionary.decode(i) for i in range(len(base.dictionary))]
+    engines = [
+        QueryEngine(TripleStore.from_arrays(base.triples, terms), device=d,
+                    **mode)
+        for d in (cuda, "cpu")
+    ]
+    queries = {**lubm.QUERIES, **lubm.OPERATOR_QUERIES, **lubm.J_QUERIES,
+               **lubm.S_QUERIES}
+    fields = ("n_retries", "n_dispatches", "n_count_passes",
+              "peak_join_bucket", "n_compiles")
+    for text in queries.values():
+        for _ in range(2):
+            on_card, on_cpu = (e.prepare(text).run() for e in engines)
+            assert on_card.rows == on_cpu.rows
+            for f in fields:
+                assert getattr(on_card.stats, f) == getattr(on_cpu.stats, f)
+
+
 # ------------------------------------------------ stacked forms and vmap
 
 @pytest.mark.parametrize("lanes", [1, 3, 8])

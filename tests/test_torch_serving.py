@@ -26,7 +26,6 @@ from repro_torch.serve.batcher import (
 )
 from repro_torch.serve.decode import DecodePool
 from repro_torch.serve.sparql_server import (
-    DECODE_WORKERS,
     ParseQueryError,
     QueryError,
     QueryResult,
@@ -287,10 +286,146 @@ def test_cold_query_resolves_through_the_decode_pool():
         )
         st = srv.stats()["pipeline"]
         assert st["deferred"] == 1
-        assert st["decode"]["workers"] == DECODE_WORKERS
+        assert st["decode"]["workers"] == srv.decode_workers
         assert st["decode"]["decoded"] == 1
     finally:
         srv.close()
+
+
+def _both_servers(triples, engine_kw=None, **kw):
+    """The reference's server and the port's over the same triples."""
+    engine_kw = engine_kw or {}
+    return (
+        JServer(JEngine(j_store(triples), **engine_kw), **kw),
+        SPARQLServer(QueryEngine(store_from_string_triples(triples),
+                                 device="cpu", **engine_kw), **kw),
+    )
+
+
+def _dispatch_either(srv, texts):
+    """_dispatch for either package's server: each package's Deferred
+    slots resolved inline."""
+    return [o.fn() if type(o).__name__ == "Deferred" else o
+            for o in srv._run_batch(texts)]
+
+
+def _concurrent(srv, texts):
+    """Every text submitted at once from its own thread: the rows of each."""
+    rows = [None] * len(texts)
+    gate = threading.Barrier(len(texts))
+
+    def ask(i):
+        gate.wait()
+        rows[i] = srv.query(texts[i]).rows
+
+    threads = [threading.Thread(target=ask, args=(i,))
+               for i in range(len(texts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    return rows
+
+
+def test_synchronous_mode_matches_jax_server():
+    """decode_workers=0 (test_serving_pipeline.py:287-300): no pool, decode
+    inline on the batcher thread, the reference's rows and the oracle's,
+    alone and under concurrent submission."""
+    triples = pipeline_triples()
+    servers = _both_servers(triples, decode_workers=0, max_wait_s=0.02)
+    try:
+        j_srv, srv = servers
+        for t in QUERIES:
+            out = srv.query(t)
+            assert isinstance(out, QueryResult)
+            assert out.rows == j_srv.query(t).rows
+            assert rows_as_sets(out.rows) == rows_as_sets(
+                reference_rows(srv.engine.store, parse(t))
+            )
+        texts = [QUERIES[i % len(QUERIES)] for i in range(12)]
+        assert _concurrent(srv, texts) == _concurrent(j_srv, texts)
+        for s in servers:
+            st = s.stats()["pipeline"]
+            assert st["decode"] is None and st["deferred"] >= len(texts)
+        assert srv.stats()["pipeline"]["deferred"] == (
+            j_srv.stats()["pipeline"]["deferred"]
+        )
+    finally:
+        for s in servers:
+            s.close()
+
+
+def _chain_triples(n_src=12, fan=3):
+    """test_batched_exec.py's chain store."""
+    triples = []
+    for i in range(n_src):
+        triples.append((f"<s{i}>", "<p>", f"<m{i % fan}>"))
+        triples.append((f"<s{i}>", "<age>", str(20 + i)))
+    for j in range(fan):
+        triples.append((f"<m{j}>", "<q>", f"<z{j}>"))
+        triples.append((f"<m{j}>", "<q>", f"<z{j + fan}>"))
+    return triples
+
+
+def test_unbatched_server_matches_jax_server():
+    """batch_execution=False (test_batched_exec.py:375-384): each pending
+    query runs alone, nothing is stacked, the rows are the reference's."""
+    texts = [
+        "SELECT ?x ?z WHERE { ?x <p> ?y . ?y <q> ?z . "
+        f"FILTER (?x != <s{k}>) }}"
+        for k in range(4)
+    ]
+    servers = _both_servers(_chain_triples(), batch_execution=False)
+    try:
+        rows = []
+        for s in servers:
+            _dispatch_either(s, texts)
+            outs = _dispatch_either(s, texts)
+            assert s.engine.stacked_dispatches == 0
+            assert s.stats()["batched"]["stacked_dispatches"] == 0
+            rows.append([o.rows for o in outs])
+        assert rows[1] == rows[0]
+        # the batched server stacks the same batch
+        srv = SPARQLServer(QueryEngine(
+            store_from_string_triples(_chain_triples()), device="cpu"))
+        try:
+            _dispatch(srv, texts)
+            assert [o.rows for o in _dispatch(srv, texts)] == rows[0]
+            assert srv.engine.stacked_dispatches > 0
+        finally:
+            srv.close()
+    finally:
+        for s in servers:
+            s.close()
+
+
+def test_unbatched_server_keeps_each_failure_as_its_outcome():
+    """batch_execution=False: one query's MemoryError (double-on-overflow
+    past max_capacity) is its own outcome, an execution QueryError, and
+    its batchmate answers, in both packages."""
+    triples = ([(f"<s{i}>", "<p>", "<hub>") for i in range(20)]
+               + [("<hub>", "<q>", f"<o{i}>") for i in range(20)]
+               + [(f"<s{i}>", "<age>", str(i)) for i in range(4)])
+    texts = ["SELECT ?x ?a WHERE { ?x <p> ?y . ?x <age> ?a . }",
+             "SELECT ?x ?z WHERE { ?x <p> ?y . ?y <q> ?z . }"]
+    servers = _both_servers(
+        triples, {"exact_count_pass": False, "max_capacity": 64},
+        batch_execution=False,
+    )
+    try:
+        outs = []
+        for s in servers:
+            outs.append(_dispatch_either(s, texts))
+            assert s.engine.stacked_dispatches == 0
+        (j_ok, j_bad), (ok, bad) = outs
+        assert ok.rows == j_ok.rows and len(ok.rows) == 4
+        assert isinstance(bad, QueryError) and bad.kind == "execution"
+        assert type(j_bad).__name__ == "QueryError"
+        assert j_bad.kind == "execution"
+    finally:
+        for s in servers:
+            s.close()
 
 
 def test_update_through_server_is_seen_by_later_queries():
