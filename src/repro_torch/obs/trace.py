@@ -1,9 +1,10 @@
 """Lightweight span tracing for the query path.
 
 One `Trace` per request, a tree of `Span`s under its root covering
-parse -> optimize -> compile -> dispatch -> transfer -> decode. Clocks
-are monotonic (`time.perf_counter`); a wall-clock epoch captured at
-trace creation anchors the Chrome trace-event export. Everything is
+queue -> parse -> optimize -> compile -> dispatch (its child: enqueue)
+-> decode_queue -> transfer -> decode. Clocks are monotonic
+(`time.perf_counter`); a wall-clock epoch captured at trace creation
+anchors the Chrome trace-event export. Everything is
 thread-safe: spans are appended under the trace's lock, because a
 request's spans are produced on three different threads (submitter,
 batcher, decode worker).
@@ -25,6 +26,14 @@ leaked-span tests assert `open_spans()` is empty over the whole ring.
 A stacked dispatch fans ONE device launch out to N lane traces: each
 lane records its own "dispatch" span over the same interval, correlated
 by a shared `dispatch_id` attribute.
+
+On-CPU time: a span may carry the attribute `cpu_s`, the seconds of
+`time.thread_time()` the recording thread used between the span's start
+and end, taken by the caller at the same two points as its
+`perf_counter()` stamps. Nothing records it by default; the spans that
+carry it (enqueue, transfer, decode) read the extra clock only when a
+trace rides. Wall minus `cpu_s` is the time the thread was off the CPU:
+waiting for the interpreter lock, the OS scheduler, or a device sync.
 
 `Tracer` owns the bounded ring of finished traces (the server's
 `recent_traces()`) and the slow-query log: traces whose total duration

@@ -78,9 +78,12 @@ class Request:
     # submitter gave up (deadline expired): decode stages skip the work
     abandoned: bool = False
     # per-request trace (obs.Trace) or None: the batcher and decode pool
-    # annotate failure paths on it (duck-typed — this module stays
-    # import-free of the obs package)
+    # record the request's waits and failure paths on it (duck-typed —
+    # this module stays import-free of the obs package)
     trace: Any = None
+    # perf_counter stamp of the submit, taken only when a trace rides:
+    # the start of the request's "queue" span
+    t_submit: float = 0.0
 
 
 class MicroBatcher:
@@ -109,6 +112,8 @@ class MicroBatcher:
     def submit(self, payload: Any, timeout: float = 30.0,
                trace: Any = None) -> Any:
         r = Request(payload, trace=trace)
+        if trace is not None:
+            r.t_submit = time.perf_counter()
         self.q.put(r)
         if not r.event.wait(timeout):
             r.abandoned = True
@@ -176,6 +181,11 @@ class MicroBatcher:
                     )
             results = [_exc_copy(e) for _ in batch]
         self.dispatch_s += time.perf_counter() - t0
+        for r in batch:
+            if r.trace is not None:
+                # submit to the hand-over of its batch to batch_fn: the
+                # wait behind earlier batches plus the max_wait_s collect
+                r.trace.add_span("queue", r.t_submit, t0, batch=len(batch))
         self.n_batches += 1
         self.n_requests += len(batch)
         self.batch_size_hist[len(batch)] = (

@@ -30,9 +30,11 @@ class DecodePool:
     """Bounded pool of daemon workers that finalise batch result slots off
     the batcher thread.
 
-    Items are (request, fn) pairs where `request` duck-types the
-    batcher's Request (``.result``, ``.event``, ``.abandoned``) and
-    ``fn()`` produces the request's final value. Crash isolation is per
+    Items are (request, fn, submit stamp) triples where `request`
+    duck-types the batcher's Request (``.result``, ``.event``,
+    ``.abandoned``, ``.trace``), ``fn()`` produces the request's final
+    value, and the stamp (None when no trace rides) starts the request's
+    ``decode_queue`` span. Crash isolation is per
     item: any exception a worker hits becomes that one request's result
     (re-raised on the submitter's thread) and the worker keeps serving.
     Should a worker thread die anyway (e.g. a BaseException escaping the
@@ -72,7 +74,11 @@ class DecodePool:
         depth = self.q.qsize() + 1
         if depth > self.max_depth:
             self.max_depth = depth
-        self.q.put((request, fn))
+        # the start of the request's "decode_queue" span, stamped only
+        # when a trace rides
+        t = (time.perf_counter()
+             if getattr(request, "trace", None) is not None else None)
+        self.q.put((request, fn, t))
 
     def _worker(self) -> None:
         while True:
@@ -85,8 +91,11 @@ class DecodePool:
             # consumer, not to whichever request this worker takes next
             del item
 
-    def _finish(self, r: Any, fn: Callable[[], Any]) -> None:
+    def _finish(self, r: Any, fn: Callable[[], Any],
+                t_submit: "float | None" = None) -> None:
         trace = getattr(r, "trace", None)
+        if t_submit is not None:
+            trace.add_span("decode_queue", t_submit, time.perf_counter())
         if getattr(r, "abandoned", False):
             self.n_skipped += 1
             if trace is not None:

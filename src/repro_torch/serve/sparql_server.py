@@ -45,8 +45,9 @@ as writes stay within their capacity buckets. `stats()["store"]` and
 server's cumulative write counters.
 
 Observability: when the engine carries a `Tracer`, every request gets a
-per-query trace — parse, optimize, compile, dispatch (fanned across
-stacked lanes), transfer and decode spans — finished (and ring-buffered)
+per-query trace — queue (the batcher's), parse, optimize, compile,
+dispatch (fanned across stacked lanes) with its enqueue, decode_queue
+(the decode pool's), transfer and decode spans — finished (and ring-buffered)
 in `query()`'s finally, the ONLY closer, so no path leaks an open span.
 Request counters live on the engine's `MetricsRegistry`
 (`render_prometheus()` is a single scrape covering server + engine), and
@@ -467,8 +468,9 @@ class SPARQLServer:
                 },
             },
             # the two pipeline stages' health: slots handed to the decode
-            # side, batcher time spent in dispatch, device busy seconds
-            # (1 - Δdevice_time_s / wall is the bench's idle fraction)
+            # side, batcher time spent in dispatch, and device_time_s: host
+            # seconds from the program's enqueue to the read of its flags
+            # (host time, not the card's)
             "pipeline": {
                 "deferred": self._batcher.n_deferred,
                 "dispatch_s": self._batcher.dispatch_s,

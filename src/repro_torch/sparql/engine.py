@@ -116,8 +116,9 @@ class ExecStats:
     n_shuffles_emitted: int = 0
     n_shuffles_elided: int = 0
     n_broadcast_joins: int = 0
-    # host wall seconds spent inside device dispatch + result sync for
-    # THIS run (the engine-level `device_time_s` is the sum of these)
+    # host seconds from the program's enqueue to the read of its flags,
+    # for THIS run (the engine-level `device_time_s` is the sum of these);
+    # not the card's time
     device_time_s: float = 0.0
     # rows this run's decode emitted (-1 = not yet decoded)
     rows_emitted: int = -1
@@ -408,6 +409,30 @@ class _SharedFetch:
         return self.cols, self.valid, False
 
 
+def _enqueue(traced: bool, program, *args):
+    """`program(*args)`: the enqueue of a plan program's launches, which
+    returns before the card runs them. When `traced`, also (its end
+    stamp, the seconds of `time.thread_time` the calling thread used
+    inside it); else None, and no clock is read."""
+    if not traced:
+        return program(*args), None
+    c0 = time.thread_time()
+    out = program(*args)
+    c1 = time.thread_time()
+    return out, (time.perf_counter(), c1 - c0)
+
+
+def _add_event(trace, name: str, t0: float, t1: float, enq=None,
+               **attrs) -> None:
+    """Record a `dispatch` (or `compile`) span on `trace`; with `enq`
+    (from `_enqueue`), its `enqueue` child from the same start, with the
+    same attributes and `cpu_s`."""
+    span = trace.add_span(name, t0, t1, **attrs)
+    if enq is not None:
+        trace.add_span("enqueue", t0, enq[0], parent=span, cpu_s=enq[1],
+                       **attrs)
+
+
 class PendingDecode:
     """A dispatched query's undecoded result: result buffers (device-side
     until the first consumer fetches) plus the lane metadata needed to
@@ -437,19 +462,25 @@ class PendingDecode:
         self.trace = trace
 
     def resolve(self) -> ResultSet:
+        traced = self.trace is not None
         t0 = time.perf_counter()
+        c0 = time.thread_time() if traced else 0.0
         cols, valid, paid = self.fetch.fetch()
+        c1 = time.thread_time() if traced else 0.0
         t1 = time.perf_counter()
         if self.lane is not None:
             cols, valid = cols[self.lane], valid[self.lane]
         rows = self.engine._decode_numpy(self.names, cols[valid])
+        c2 = time.thread_time() if traced else 0.0
         t2 = time.perf_counter()
-        if self.trace is not None:
+        if traced:
             # the sharing lanes' "transfer" span is their wait on the
             # paying lane's sync (usually ~0): attrs distinguish them
             self.trace.add_span("transfer", t0, t1, paid=paid,
-                                transfer_s=round(self.fetch.transfer_s, 6))
-            self.trace.add_span("decode", t1, t2, rows=len(rows))
+                                transfer_s=round(self.fetch.transfer_s, 6),
+                                cpu_s=c1 - c0)
+            self.trace.add_span("decode", t1, t2, rows=len(rows),
+                                cpu_s=c2 - c1)
         self.stats.rows_emitted = len(rows)
         pq = self.pq
         pq.stats.add(self.stats)
@@ -631,8 +662,8 @@ class QueryEngine:
         self.real_cells = 0
         # correlates the N lane "dispatch" spans a stacked chunk fans out
         self._dispatch_seq = 0
-        # cumulative wall seconds the host spent inside device dispatch +
-        # result sync (device idle share = 1 - Δdevice_time_s / wall)
+        # cumulative host seconds from each program's enqueue to the read
+        # of its flags (host time, not the card's)
         self.device_time_s = 0.0
         # the unified metrics registry: engine-side counters are bridged
         # in by a scrape-time collector (the dispatch path pays nothing);
@@ -723,9 +754,10 @@ class QueryEngine:
         m.register_collector(collect)
 
     def _device_tick(self, stats: ExecStats, t0: float) -> float:
-        """Account one dispatch-and-sync interval on BOTH ledgers (the
-        engine-wide total and this run's ExecStats) so the engine total
-        always equals the sum over runs. Returns the end stamp."""
+        """Account the host seconds from one program's enqueue (`t0`) to
+        the read of its flags on BOTH ledgers (the engine-wide total and
+        this run's ExecStats) so the engine total always equals the sum
+        over runs. Returns the end stamp."""
         t1 = time.perf_counter()
         dt = t1 - t0
         self.device_time_s += dt
@@ -1068,7 +1100,9 @@ class QueryEngine:
             pos += len(chunk)
             if len(chunk) < 2 or self.plan_cache.get(shape) is None:
                 for i in chunk:
-                    out[i] = self._run_single(prepared[i], group, defer)
+                    out[i] = self._run_single(
+                        prepared[i], group, defer, traces[i]
+                    )
                 continue
             try:
                 self._run_chunk_stacked(
@@ -1161,8 +1195,10 @@ class QueryEngine:
         self.plan_cache.hits += n
         # retroactive span intervals, fanned out to every lane trace after
         # the chunk succeeds (one device dispatch -> N lane "dispatch"
-        # spans correlated by a shared dispatch_id)
-        events: list[tuple[str, float, float]] = []
+        # spans correlated by a shared dispatch_id): (name, t0, t1, the
+        # dispatch's enqueue from `_enqueue` or None)
+        events: list[tuple[str, float, float, "tuple | None"]] = []
+        traced = any(traces[i] is not None for i in chunk) if traces else False
         ovf_counts = [0] * shape.n_joins()
         try:
             while True:
@@ -1170,18 +1206,22 @@ class QueryEngine:
                 if bexec is None:
                     tc0 = time.perf_counter()
                     bexec = self._build_batched(entry, width, inp.scan_axes)
-                    events.append(("compile", tc0, time.perf_counter()))
+                    events.append(
+                        ("compile", tc0, time.perf_counter(), None)
+                    )
                     entry.batched[(width, inp.scan_axes)] = bexec
                     stats.n_compiles += 1
                     self.plan_cache.compiles += 1
                 stats.n_dispatches += 1
                 t0 = time.perf_counter()
-                rel_b, totals_b, flags_b = bexec(
-                    inp.scans, inp.consts_i, inp.consts_f, inp.num_vals,
-                    inp.active,
+                (rel_b, totals_b, flags_b), enq = _enqueue(
+                    traced, bexec, inp.scans, inp.consts_i, inp.consts_f,
+                    inp.num_vals, inp.active,
                 )
                 flags_np = flags_b.cpu().numpy()  # the single host sync
-                events.append(("dispatch", t0, self._device_tick(stats, t0)))
+                events.append(
+                    ("dispatch", t0, self._device_tick(stats, t0), enq)
+                )
                 if not flags_np.any():
                     break
                 # some lane overflowed a bucket: grow each flagged join to
@@ -1269,9 +1309,9 @@ class QueryEngine:
             st.device_time_s = stats.device_time_s / len(chunk)
             trace = traces[i] if traces is not None else None
             if trace is not None and events:
-                for name, t0, t1 in events:
-                    trace.add_span(
-                        name, t0, t1,
+                for event in events:
+                    _add_event(
+                        trace, *event,
                         dispatch_id=self._dispatch_seq,
                         width=stats.batch_width, stacked=True, lane=k,
                     )
@@ -1771,8 +1811,9 @@ class QueryEngine:
         while True:
             stats.n_dispatches += 1
             t0 = time.perf_counter()
-            rel, totals, flags = entry.compiled(
-                canon_scans, consts_i, consts_f, num_vals
+            (rel, totals, flags), enq = _enqueue(
+                trace is not None, entry.compiled,
+                canon_scans, consts_i, consts_f, num_vals,
             )
             stats.peak_capacity = max(
                 stats.peak_capacity, entry.compiled.plan.max_capacity()
@@ -1784,7 +1825,7 @@ class QueryEngine:
             flags_np = flags.cpu().numpy()  # the single host sync
             t1 = self._device_tick(stats, t0)
             if trace is not None:
-                trace.add_span("dispatch", t0, t1)
+                _add_event(trace, "dispatch", t0, t1, enq)
             if not flags_np.any():
                 stats.join_totals = tuple(
                     int(t) for t in totals.cpu().numpy()
@@ -2517,7 +2558,10 @@ class ShardedQueryEngine(QueryEngine):
             stats.n_dispatches += 1
             self._count_shuffles(entry, stats)
             t0 = time.perf_counter()
-            res = entry.compiled(canon_scans, consts_i, consts_f, num_vals)
+            res, enq = _enqueue(
+                trace is not None, entry.compiled,
+                canon_scans, consts_i, consts_f, num_vals,
+            )
             caps = entry.compiled.plan.join_caps
             stats.peak_capacity = max(
                 stats.peak_capacity, entry.compiled.plan.max_capacity()
@@ -2528,7 +2572,8 @@ class ShardedQueryEngine(QueryEngine):
             acct = _ShardAcct.fetch(res, self.mesh)
             t1 = self._device_tick(stats, t0)
             if trace is not None:
-                trace.add_span("dispatch", t0, t1, n_shards=self.n_shards)
+                _add_event(trace, "dispatch", t0, t1, enq,
+                           n_shards=self.n_shards)
             if not acct.overflowed():
                 # totals are (n_shards, n_joins): the analyze view wants
                 # the global rows AND the worst shard (fill pressure is a
@@ -2625,7 +2670,8 @@ class ShardedQueryEngine(QueryEngine):
             store_version=inp.store_version,
         )
         self.plan_cache.hits += n
-        events: list[tuple[str, float, float]] = []
+        events: list[tuple[str, float, float, "tuple | None"]] = []
+        traced = any(traces[i] is not None for i in chunk) if traces else False
         ovf_counts = [0] * shape.n_joins()
         try:
             while True:
@@ -2633,19 +2679,23 @@ class ShardedQueryEngine(QueryEngine):
                 if bexec is None:
                     tc0 = time.perf_counter()
                     bexec = self._build_batched(entry, width, inp.scan_axes)
-                    events.append(("compile", tc0, time.perf_counter()))
+                    events.append(
+                        ("compile", tc0, time.perf_counter(), None)
+                    )
                     entry.batched[(width, inp.scan_axes)] = bexec
                     stats.n_compiles += 1
                     self.plan_cache.compiles += 1
                 stats.n_dispatches += 1
                 self._count_shuffles(entry, stats)
                 t0 = time.perf_counter()
-                res = bexec(
-                    inp.scans, inp.consts_i, inp.consts_f, inp.num_vals,
-                    inp.active,
+                res, enq = _enqueue(
+                    traced, bexec, inp.scans, inp.consts_i, inp.consts_f,
+                    inp.num_vals, inp.active,
                 )
                 acct = _ShardAcct.fetch(res, self.mesh)  # every (lane, shard)
-                events.append(("dispatch", t0, self._device_tick(stats, t0)))
+                events.append(
+                    ("dispatch", t0, self._device_tick(stats, t0), enq)
+                )
                 if not acct.overflowed():
                     break
                 entry = self._regrow(shape, entry, acct, ovf_counts, stats)
