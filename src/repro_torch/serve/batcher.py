@@ -4,8 +4,10 @@ dispatches when full or when max_wait elapses.
 
 The batcher thread is the serving tier's CPU stage of the MapSQ
 coprocessing split: it must only GROUP and DISPATCH. Host-side result
-decode — the expensive Python loop that turns device buffers into row
-dicts — is handed off through `Deferred` slots: `batch_fn` may return, per
+decode — the copy of device buffers to the host, a gather of their ids
+through the term table and a dict built per row, the last two under the
+interpreter lock that the batcher's next dispatch also needs — is handed
+off through `Deferred` slots: `batch_fn` may return, per
 request, a zero-argument callable wrapped in `Deferred`, and the batcher
 routes it to the configured decode pool (serve/decode.py) instead of
 running it inline. With a pool attached, dispatch of batch k+1 overlaps

@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import logging
 import pathlib
@@ -336,6 +337,11 @@ class ResultSet:
     """Typed, decoded query result: rows as {var: term} dicts (variables an
     OPTIONAL group left unbound are omitted), plus the producing run's
     ExecStats. Compares equal to a plain list of row dicts for convenience.
+
+    Every row is decoded when the result resolves: the terms come from one
+    gather through the dictionary's term table, and only rows an OPTIONAL
+    group left partly unbound are built one at a time
+    (`QueryEngine._decode_numpy`).
     """
 
     def __init__(self, vars: tuple[str, ...], rows: list[dict[str, str]],
@@ -433,6 +439,25 @@ def _add_event(trace, name: str, t0: float, t1: float, enq=None,
                        **attrs)
 
 
+def _loose_rows(rows: np.ndarray) -> np.ndarray:
+    """Per row of an (n, k) id matrix: whether it holds UNBOUND."""
+    return (rows == UNBOUND).any(axis=1)
+
+
+def _dict_rows(schema: tuple[str, ...], terms: np.ndarray) -> list[dict]:
+    """(n, k) terms -> n dicts {schema[j]: terms[i, j]}, keys in
+    `schema`'s order: the columns' lists zipped into rows, each row into a
+    dict, all by `map` in C. No bytecode runs until the list is whole, so
+    the collector runs once after it and not every 700 dicts, as it would
+    under a loop in Python; each of those young collections would move
+    the plan programs then in flight into the old generation, and the
+    device memory their reference cycles hold with them."""
+    if not schema:
+        return [{} for _ in range(len(terms))]
+    cols = terms.T.tolist()
+    return list(map(dict, map(zip, itertools.repeat(schema), zip(*cols))))
+
+
 class PendingDecode:
     """A dispatched query's undecoded result: result buffers (device-side
     until the first consumer fetches) plus the lane metadata needed to
@@ -470,7 +495,8 @@ class PendingDecode:
         t1 = time.perf_counter()
         if self.lane is not None:
             cols, valid = cols[self.lane], valid[self.lane]
-        rows = self.engine._decode_numpy(self.names, cols[valid])
+        ids = cols[valid]
+        rows = self.engine._decode_numpy(self.names, ids)
         c2 = time.thread_time() if traced else 0.0
         t2 = time.perf_counter()
         if traced:
@@ -479,8 +505,9 @@ class PendingDecode:
             self.trace.add_span("transfer", t0, t1, paid=paid,
                                 transfer_s=round(self.fetch.transfer_s, 6),
                                 cpu_s=c1 - c0)
-            self.trace.add_span("decode", t1, t2, rows=len(rows),
-                                cpu_s=c2 - c1)
+            self.trace.add_span(
+                "decode", t1, t2, rows=len(rows), cpu_s=c2 - c1,
+                unbound_rows=int(np.count_nonzero(_loose_rows(ids))))
         self.stats.rows_emitted = len(rows)
         pq = self.pq
         pq.stats.add(self.stats)
@@ -1482,15 +1509,25 @@ class QueryEngine:
     def _decode_numpy(
         self, schema: tuple[str, ...], rows: np.ndarray
     ) -> list[dict[str, str]]:
+        """(n, len(schema)) ids -> n dicts {var: term}, in `rows`' order
+        with keys in `schema`'s. Rows with every cell bound take one
+        gather through the dictionary's term table and are zipped into
+        dicts (`_dict_rows`); a row holding UNBOUND (an OPTIONAL group's
+        unmatched row) is decoded alone and omits its unbound variables."""
         d = self.store.dictionary
-        return [
+        loose = _loose_rows(rows)
+        if not loose.any():
+            return _dict_rows(schema, d.decode_ids(rows))
+        tight = iter(_dict_rows(schema, d.decode_ids(rows[~loose])))
+        partial = iter([
             {
                 v: d.decode(int(t))
                 for v, t in zip(schema, row)
                 if int(t) != UNBOUND
             }
-            for row in rows
-        ]
+            for row in rows[loose]
+        ])
+        return [next(partial) if lo else next(tight) for lo in loose.tolist()]
 
     # -- eager evaluator ---------------------------------------------------
     def _eval_shape_eager(
